@@ -28,6 +28,12 @@ import pytest
 REFERENCE_TESTS = pathlib.Path("/root/reference/tests")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (kernels of rupphash_tpu_torch); "
+                   "skipped without one")
+
+
 @pytest.fixture(scope="session")
 def bench_jpg():
     """The reference benchmark fixture (CC0 Lapland photo), decoded to RGB."""
