@@ -3,21 +3,35 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Phases, each printing its own line; any failure exits non-zero:
+Phases, in the order they run, each printing its own lines; any
+failure exits non-zero:
   1. environment: torch/CUDA versions, card name and power limit,
      float32 precision flags, Pillow/cryptography availability;
   2. build of the CUDA kernels from rupphash_tpu_torch/csrc;
   3. K1 (PDQ hash) against its plain PyTorch version and the numpy
      golden, at B=256 for 512x288, 320x240 and a mixed-shape batch;
-  4. K3 (count sweep) and K4 (hot-row extraction) against their plain
+  4. K2 (hybrid PDQ front half) against its plain version, and its
+     hashes against K1's and the numpy golden, on phase 3's batches and
+     a B=256 batch of 512 rows x 288 columns (the self-test's shape);
+  5. K3 (count sweep) and K4 (hot-row extraction) against their plain
      versions at N=100,000 hashes with planted clusters, and the edge
      search against the brute-force oracle at N=4,096;
-  5. end to end: `python -m rupphash_tpu_torch --no-cache DIR` on a
+  6. K6 (int8 tensor-core count sweep) against K3 and its plain
+     version on phase 5's N=100,000 hashes, K6 ms beside K3 ms;
+  7. K5 (column restack) against its plain version, bit for bit, at
+     W = 128, 256, 288;
+  8. end to end: `python -m rupphash_tpu_torch --no-cache DIR` on a
      generated directory of textured images with planted duplicate
-     groups; checks the printed groups and that every kernel launched.
+     groups; checks the printed groups and that every kernel launched;
+  9. tools: the self-test, mosaic_repro and prof_nz, each as its own
+     process, must exit 0; their launch counts show that the self-test
+     ran K2, mosaic_repro K5 and prof_nz K6 (which holds K6 against K3
+     and its plain version at N=200,000).
 Then one JSON line with each kernel's numbers, and the device JSON as
 the last line.  Every kernel-vs-plain timing runs plain, kernel, kernel,
-plain on the same inputs and reports the mean of the two of each.
+plain on the same inputs and reports the mean of the two of each.  The
+launch counts in the JSON line come from the runs of phase 8 (K1, K3,
+K4) and phase 9 (K2, K5, K6), each a new process whose counts start at 0.
 """
 
 from __future__ import annotations
@@ -171,8 +185,10 @@ def phase_k1(dev):
               f"plain/kernel {plain_ms / ms:.2f}")
         return ms, plain_ms
 
+    batches = []
     for rows, cols in ((288, 512), (240, 320)):
         lumas = textured_lumas(gen, 256, rows, cols, dev)
+        batches.append(lumas)
         l_op, r_op = pdq_torch.linear_operators(rows, cols)
         args = (lumas, torch.from_numpy(l_op)[None].to(dev),
                 torch.from_numpy(r_op)[None].to(dev),
@@ -196,7 +212,7 @@ def phase_k1(dev):
         check(torch.equal(got["dihedral"][i], single["dihedral"][0]),
               f"K1 mixed batch image {i} differs from its per-shape batch")
     phase("k1", "mixed-shape batch bit-identical to per-shape batches")
-    return result
+    return result, batches
 
 
 def planted_hashes(n, clusters, seed):
@@ -306,7 +322,168 @@ def phase_hamming(dev):
               f"N=4096 sim {sim}: edges differ from brute_force_edges")
         phase("k3k4", f"N=4096 sim={sim}: {len(got[0])} edges identical to "
               "brute_force_edges")
-    return res
+    return res, (var_bits, low_d, n)
+
+
+def phase_k2(dev, batches):
+    import torch
+
+    from rupphash_tpu_torch.ops import pdq_cuda, pdq_hybrid, pdq_torch
+
+    golden = pdq_torch.pdq_ref
+    result = {"max_abs_err": 0.0}
+    # phase k1's batches, and 512 rows x 288 columns: the self-test's
+    # shape and K2's largest shared-memory setup
+    tall = textured_lumas(torch.Generator().manual_seed(SEED + 2), 256, 512,
+                          288, dev)
+    for lumas in (*batches, tall):
+        b, rows, cols = lumas.shape
+        label = f"{cols}x{rows}"
+        ops = pdq_hybrid.operators(rows, cols, dev)
+        kc, kq = pdq_hybrid.pdq_coeffs(lumas, *ops)
+        pc, pq = pdq_hybrid.pdq_coeffs_plain(lumas, *ops)
+        hyb = pdq_hybrid.pdq_hash_batch_hybrid(lumas)
+        l_op, r_op = pdq_torch.linear_operators(rows, cols)
+        k1 = pdq_cuda.pdq_hash(lumas, torch.from_numpy(l_op)[None].to(dev),
+                               torch.from_numpy(r_op)[None].to(dev),
+                               torch.zeros(b, dtype=torch.int32, device=dev),
+                               ops[4])
+        torch.cuda.synchronize()
+        dq = float((kq - pq).abs().max())
+        dc = float((kc - pc).abs().max())
+        check(dq <= 1e-6, f"K2 {label}: quality differs from plain by {dq}")
+        check(torch.allclose(kc, pc, rtol=1e-4, atol=0.5),
+              f"K2 {label}: coeffs differ from plain by {dc}")
+        diff = (hyb["dihedral"] != k1["dihedral"]).flatten(1).any(1)
+        bad = [int(i) for i in torch.nonzero(diff)[:, 0].tolist()]
+        check(not bad, f"K2 {label}: images {bad[:10]} ({len(bad)}/{b}) "
+              "have dihedral hashes that differ from K1's")
+        dq1 = float((hyb["quality"] - k1["quality"]).abs().max())
+        check(dq1 <= 1e-6, f"K2 {label}: quality differs from K1 by {dq1}")
+        dih = hyb["dihedral"].cpu().numpy()
+        qual = hyb["quality"].cpu().numpy()
+        lumas_np = lumas.cpu().numpy()
+        for i in range(16):
+            coeffs, _, quality = golden.pdq_from_luma(lumas_np[i])
+            check([bytes(dih[i, v]) for v in range(8)]
+                  == golden.dihedral_hashes(coeffs),
+                  f"K2 {label}: image {i} differs from the golden")
+            check(abs(float(qual[i]) - quality) <= 1e-6,
+                  f"K2 {label}: image {i} quality {qual[i]} vs {quality}")
+        result["max_abs_err"] = max(result["max_abs_err"], dc)
+        ms, plain_ms = paired_ms(lambda: pdq_hybrid.pdq_coeffs(lumas, *ops),
+                                 lambda: pdq_hybrid.pdq_coeffs_plain(lumas,
+                                                                     *ops), 20)
+        hyb_ms = cuda_ms(lambda: pdq_hybrid.pdq_hash_batch_hybrid(lumas), 20)
+        phase("k2", f"{label} B={b}: dihedral identical to K1, 16/16 "
+              f"identical to the golden; vs plain max |dquality| {dq} max "
+              f"|dcoeff| {dc}; kernel {ms:.4f} ms ({b / ms * 1e3:.0f} img/s), "
+              f"plain {plain_ms:.4f} ms, plain/kernel {plain_ms / ms:.2f}; "
+              f"with the dihedral epilogue {hyb_ms:.4f} ms")
+        if rows == 288:
+            result["ms"], result["plain_ms"] = ms, plain_ms
+    return result
+
+
+def phase_k6(inputs):
+    import torch
+
+    from rupphash_tpu_torch.ops import hamming, hamming_cuda
+
+    var_bits, low_d, n = inputs
+    pm1 = hamming.unpack_bits_pm1(var_bits).contiguous()
+    result = {"max_abs_err": 0}
+    for sim in (31, 40):
+        k3 = hamming_cuda.scan_row_counts(var_bits, low_d, sim=sim, n_total=n)
+        k6 = hamming_cuda.scan_row_counts_pm1(pm1, low_d, sim=sim, n_total=n)
+        plain = hamming_cuda.scan_row_counts_pm1_plain(pm1, low_d, sim=sim,
+                                                       n_total=n)
+        torch.cuda.synchronize()
+        err = int((k6 - plain).abs().max())
+        check(torch.equal(k6, k3), f"K6 sim {sim}: counts differ from K3's")
+        check(err == 0, f"K6 sim {sim}: counts differ from plain by {err}")
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        ms, plain_ms = paired_ms(
+            lambda: hamming_cuda.scan_row_counts_pm1(pm1, low_d, sim=sim,
+                                                     n_total=n),
+            lambda: hamming_cuda.scan_row_counts_pm1_plain(
+                pm1, low_d, sim=sim, n_total=n), 2)
+        k3_ms = cuda_ms(lambda: hamming_cuda.scan_row_counts(
+            var_bits, low_d, sim=sim, n_total=n), 3)
+        phase("k6", f"N={n} V={var_bits.shape[0]} sim={sim}: counts identical "
+              f"to K3 and plain ({int(k6.sum())} matches); K6 {ms:.3f} ms vs "
+              f"K3 {k3_ms:.3f} ms vs plain {plain_ms:.3f} ms; K3/K6 "
+              f"{k3_ms / ms:.2f}")
+        if sim == 40:
+            result.update(ms=ms, plain_ms=plain_ms, k3_ms=k3_ms)
+    return result
+
+
+def phase_k5(dev):
+    import numpy as np
+    import torch
+
+    from rupphash_tpu_torch.ops import restack
+
+    rng = np.random.default_rng(SEED)
+    result = {"max_abs_err": 0.0}
+    for width in (128, 256, 288):
+        x = torch.from_numpy(rng.standard_normal((1, 64, 8 * width))
+                             .astype(np.float32)).to(dev)
+        got = restack.restack(x, width)
+        want = restack.restack_plain(x, width)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"K5 W={width}: differs from the plain version")
+        ms, plain_ms = paired_ms(lambda: restack.restack(x, width),
+                                 lambda: restack.restack_plain(x, width), 200)
+        phase("k5", f"W={width}: bit-identical to plain; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
+        if width == 288:
+            result.update(ms=ms, plain_ms=plain_ms)
+    return result
+
+
+def run_tool(module, want_kernels):
+    """Run one tool as its own process; its launch counts start at 0.
+    Returns the counts it printed and its standard output."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{module} exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    m = re.search(r"^kernels: (.*)$", proc.stdout, re.MULTILINE)
+    check(m is not None, f"{module} printed no kernels line")
+    launches = {k: int(v) for k, v in
+                (kv.split("=") for kv in m.group(1).split())}
+    for k in want_kernels:
+        check(launches.get(k, 0) > 0, f"{module} never launched {k}: "
+              f"{launches}")
+    for line in proc.stdout.splitlines():
+        phase("tools", f"{module.rsplit('.', 1)[1]}: {line}")
+    phase("tools", f"{module}: exit 0 in {wall:.1f} s")
+    return launches, proc.stdout
+
+
+def phase_tools():
+    launches = {}
+    got, out = run_tool("rupphash_tpu_torch.tools.selftest",
+                        ["pdq_coeffs_kernel", "pdq_hash_kernel",
+                         "hamming_rowcount_kernel", "hamming_extract_kernel"])
+    check(re.search(r"^PASS \(0 failing checks\)$", out, re.MULTILINE)
+          is not None, "the self-test printed no PASS line")
+    launches["pdq_coeffs_kernel"] = got["pdq_coeffs_kernel"]
+    got, _ = run_tool("rupphash_tpu_torch.tools.mosaic_repro",
+                      ["restack_kernel"])
+    launches["restack_kernel"] = got["restack_kernel"]
+    got, _ = run_tool("rupphash_tpu_torch.tools.prof_nz",
+                      ["hamming_rowcount_mma_kernel",
+                       "hamming_rowcount_kernel"])
+    launches["hamming_rowcount_mma_kernel"] = got["hamming_rowcount_mma_kernel"]
+    return launches
 
 
 def write_corpus(d: Path):
@@ -399,9 +576,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     dev = phase_env()
     phase_build()
-    k1 = phase_k1(dev)
-    hm = phase_hamming(dev)
+    k1, batches = phase_k1(dev)
+    k2 = phase_k2(dev, batches)
+    hm, inputs = phase_hamming(dev)
+    k6 = phase_k6(inputs)
+    del batches, inputs
+    k5 = phase_k5(dev)
     launches = phase_e2e()
+    launches.update(phase_tools())
     kernels = [
         {"name": "pdq_hash_kernel", "route": "cuda",
          "source": "rupphash_tpu_torch/csrc/pdq.cu",
@@ -415,6 +597,18 @@ def main() -> int:
          "source": "rupphash_tpu_torch/csrc/hamming.cu",
          "replaces": "rupphash_tpu/ops/hamming_pallas.py:152",
          "launches": launches["hamming_extract_kernel"], **hm["k4"]},
+        {"name": "pdq_coeffs_kernel", "route": "cuda",
+         "source": "rupphash_tpu_torch/csrc/pdq_coeffs.cu",
+         "replaces": "rupphash_tpu/ops/pdq_pallas.py:207",
+         "launches": launches["pdq_coeffs_kernel"], **k2},
+        {"name": "restack_kernel", "route": "cuda",
+         "source": "rupphash_tpu_torch/csrc/restack.cu",
+         "replaces": "rupphash_tpu/tools/mosaic_repro.py:30",
+         "launches": launches["restack_kernel"], **k5},
+        {"name": "hamming_rowcount_mma_kernel", "route": "cuda",
+         "source": "rupphash_tpu_torch/csrc/hamming_mma.cu",
+         "replaces": "_prof_nz.py:78",
+         "launches": launches["hamming_rowcount_mma_kernel"], **k6},
     ]
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))

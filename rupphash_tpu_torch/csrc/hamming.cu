@@ -9,16 +9,17 @@
 //          and j > i and j < n_total and i < n_total
 //
 // The base side is variant slot 0 only.  The TPU kernels computed the
-// same test as a +/-1 int8 matmul (dot = 256 - 2d, threshold
-// dot >= 256 - 2 sim); here the hashes stay packed, 8 x u32 words per
-// 256-bit hash: the (V, Npad, 32) u8 tensor of the public functions is
-// read in place as (V, Npad, 2) uint4.
+// same test as a +/-1 int8 matmul (dot = nbits - 2d, threshold
+// dot >= nbits - 2 sim); here the hashes stay packed, NW u32 words per
+// hash: 8 for 256-bit PDQ, 2 for 64-bit pHash.  The (V, Npad, nbytes)
+// u8 tensor of the public functions is read in place as
+// (V, Npad, NW) u32.
 //
-// What bounds it on this card: each pair costs V x 8 XOR + popcount,
+// What bounds it on this card: each pair costs V x NW XOR + popcount,
 // and the SM issues popcount at a quarter of its integer rate, so the
 // sweep is bounded by integer issue, not by memory: a 1024-row base
-// tile is 32 KB of shared memory and serves 128 query rows.  Int8 or
-// 1-bit tensor-core MMA is the route to a faster sweep, later.
+// tile is at most 32 KB of shared memory and serves 128 query rows.
+// K6 (hamming_mma.cu) is the int8 tensor-core form of the same count.
 //
 // K3 layout: block (bj, qi) = 128 query rows (one per thread, its V
 // variants in registers) x 1024 base rows (staged in shared memory).
@@ -40,71 +41,99 @@ constexpr int kBaseTile = 1024;     // K3: base rows per block (npad % kBaseTile
 constexpr int kExtractThreads = 128;
 constexpr int kExtractQueries = 32;
 
-__device__ __forceinline__ int hamming256(const uint4& a0, const uint4& a1,
-                                          const uint4& b0, const uint4& b1) {
-  return __popc(a0.x ^ b0.x) + __popc(a0.y ^ b0.y) + __popc(a0.z ^ b0.z) +
-         __popc(a0.w ^ b0.w) + __popc(a1.x ^ b1.x) + __popc(a1.y ^ b1.y) +
-         __popc(a1.z ^ b1.z) + __popc(a1.w ^ b1.w);
+// One hash as NW words in registers; loads are 16 bytes (NW % 4 == 0)
+// or 8 bytes wide, so every hash row must be aligned to its size.
+template <int NW>
+struct Hash {
+  uint32_t w[NW];
+};
+
+template <int NW>
+__device__ __forceinline__ Hash<NW> load_hash(const uint32_t* p) {
+  Hash<NW> h;
+  if constexpr (NW % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < NW / 4; ++k) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[k];
+      h.w[4 * k] = v.x;
+      h.w[4 * k + 1] = v.y;
+      h.w[4 * k + 2] = v.z;
+      h.w[4 * k + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NW / 2; ++k) {
+      const uint2 v = reinterpret_cast<const uint2*>(p)[k];
+      h.w[2 * k] = v.x;
+      h.w[2 * k + 1] = v.y;
+    }
+  }
+  return h;
 }
 
-template <int NV>
+template <int NW>
+__device__ __forceinline__ int hamming(const Hash<NW>& a, const Hash<NW>& b) {
+  int d = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) d += __popc(a.w[k] ^ b.w[k]);
+  return d;
+}
+
+template <int NV, int NW>
 __global__ void __launch_bounds__(kRowThreads)
-hamming_rowcount_kernel(const uint4* __restrict__ words,   // (NV, npad, 2)
-                        const int32_t* __restrict__ low,   // (npad,)
+hamming_rowcount_kernel(const uint32_t* __restrict__ words,  // (NV, npad, NW)
+                        const int32_t* __restrict__ low,     // (npad,)
                         int npad, int n_total, int sim,
-                        int32_t* __restrict__ counts) {    // (npad,), zeroed
+                        int32_t* __restrict__ counts) {      // (npad,), zeroed
   const int q0 = blockIdx.y * kRowThreads;
   const int b0 = blockIdx.x * kBaseTile;
   if (b0 + kBaseTile - 1 <= q0 || b0 >= n_total || q0 >= n_total) return;
 
-  __shared__ uint4 s_base[kBaseTile * 2];
+  __shared__ __align__(16) uint32_t s_base[kBaseTile * NW];
   __shared__ int32_t s_low[kBaseTile];
-  for (int e = threadIdx.x; e < kBaseTile * 2; e += kRowThreads)
-    s_base[e] = words[static_cast<size_t>(b0) * 2 + e];
+  const uint2* src = reinterpret_cast<const uint2*>(words + static_cast<size_t>(b0) * NW);
+  uint2* dst = reinterpret_cast<uint2*>(s_base);
+  for (int e = threadIdx.x; e < kBaseTile * NW / 2; e += kRowThreads) dst[e] = src[e];
   for (int e = threadIdx.x; e < kBaseTile; e += kRowThreads) s_low[e] = low[b0 + e];
   __syncthreads();
 
   const int i = q0 + threadIdx.x;
   if (i >= n_total) return;
-  uint4 q[NV][2];
+  Hash<NW> q[NV];
 #pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    q[v][0] = words[(static_cast<size_t>(v) * npad + i) * 2];
-    q[v][1] = words[(static_cast<size_t>(v) * npad + i) * 2 + 1];
-  }
+  for (int v = 0; v < NV; ++v)
+    q[v] = load_hash<NW>(words + (static_cast<size_t>(v) * npad + i) * NW);
   const int qlow = low[i];
   const int jlo = max(b0, i + 1) - b0;
   const int jhi = min(b0 + kBaseTile, n_total) - b0;
   int cnt = 0;
   for (int jj = jlo; jj < jhi; ++jj) {
-    const uint4 b_lo = s_base[jj * 2];
-    const uint4 b_hi = s_base[jj * 2 + 1];
-    int dmin = 256;
+    const Hash<NW> b = load_hash<NW>(s_base + jj * NW);
+    int dmin = 32 * NW;
 #pragma unroll
-    for (int v = 0; v < NV; ++v) dmin = min(dmin, hamming256(q[v][0], q[v][1], b_lo, b_hi));
+    for (int v = 0; v < NV; ++v) dmin = min(dmin, hamming<NW>(q[v], b));
     const int thr = (qlow | s_low[jj]) ? 0 : sim;
     cnt += dmin <= thr;
   }
   if (cnt) atomicAdd(counts + i, cnt);
 }
 
-template <int NV>
+template <int NV, int NW>
 __global__ void __launch_bounds__(kExtractThreads)
-hamming_extract_kernel(const uint4* __restrict__ qwords,   // (NV, mq, 2)
-                       const uint4* __restrict__ bwords,   // (npad, 2)
-                       const int32_t* __restrict__ qlow,   // (mq,)
-                       const int32_t* __restrict__ blow,   // (npad,)
-                       const int32_t* __restrict__ qidx,   // (mq,)
+hamming_extract_kernel(const uint32_t* __restrict__ qwords,  // (NV, mq, NW)
+                       const uint32_t* __restrict__ bwords,  // (npad, NW)
+                       const int32_t* __restrict__ qlow,     // (mq,)
+                       const int32_t* __restrict__ blow,     // (npad,)
+                       const int32_t* __restrict__ qidx,     // (mq,)
                        int mq, int npad, int n_total, int sim,
-                       uint8_t* __restrict__ out) {        // (mq, npad / 8)
-  __shared__ uint4 s_q[kExtractQueries][NV][2];
+                       uint8_t* __restrict__ out) {          // (mq, npad / 8)
+  __shared__ __align__(16) uint32_t s_q[kExtractQueries][NV][NW];
   __shared__ int32_t s_qlow[kExtractQueries];
   __shared__ int32_t s_qidx[kExtractQueries];
   const int m0 = blockIdx.y * kExtractQueries;
-  for (int e = threadIdx.x; e < kExtractQueries * NV * 2; e += kExtractThreads) {
-    const int m = e / (NV * 2), v = (e / 2) % NV, h = e % 2;
-    s_q[m][v][h] = (m0 + m < mq) ? qwords[(static_cast<size_t>(v) * mq + m0 + m) * 2 + h]
-                                 : make_uint4(0, 0, 0, 0);
+  for (int e = threadIdx.x; e < kExtractQueries * NV * NW; e += kExtractThreads) {
+    const int m = e / (NV * NW), v = (e / NW) % NV, k = e % NW;
+    s_q[m][v][k] = (m0 + m < mq) ? qwords[(static_cast<size_t>(v) * mq + m0 + m) * NW + k] : 0u;
   }
   for (int e = threadIdx.x; e < kExtractQueries; e += kExtractThreads) {
     s_qlow[e] = (m0 + e < mq) ? qlow[m0 + e] : 1;
@@ -116,24 +145,23 @@ hamming_extract_kernel(const uint4* __restrict__ qwords,   // (NV, mq, 2)
   const int col = blockIdx.x * kExtractThreads + threadIdx.x;
   if (col >= stride) return;
   const int j0 = col * 8;
-  uint4 b[8][2];
+  Hash<NW> b[8];
   int blow_bits = 0;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
-    b[r][0] = bwords[static_cast<size_t>(j0 + r) * 2];
-    b[r][1] = bwords[static_cast<size_t>(j0 + r) * 2 + 1];
+    b[r] = load_hash<NW>(bwords + static_cast<size_t>(j0 + r) * NW);
     blow_bits |= (blow[j0 + r] != 0) << r;
   }
   const int mend = min(kExtractQueries, mq - m0);
   for (int m = 0; m < mend; ++m) {
     int dmin[8];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) dmin[r] = 256;
+    for (int r = 0; r < 8; ++r) dmin[r] = 32 * NW;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
-      const uint4 a0 = s_q[m][v][0], a1 = s_q[m][v][1];
+      const Hash<NW> a = load_hash<NW>(s_q[m][v]);
 #pragma unroll
-      for (int r = 0; r < 8; ++r) dmin[r] = min(dmin[r], hamming256(a0, a1, b[r][0], b[r][1]));
+      for (int r = 0; r < 8; ++r) dmin[r] = min(dmin[r], hamming<NW>(a, b[r]));
     }
     const int qi = s_qidx[m];
     const bool ql = s_qlow[m] != 0;
@@ -149,59 +177,63 @@ hamming_extract_kernel(const uint4* __restrict__ qwords,   // (NV, mq, 2)
   }
 }
 
+template <int NV, int NW>
+void launch_rowcount(dim3 grid, cudaStream_t st, const void* words, const void* low, int npad,
+                     int n_total, int sim, void* counts) {
+  hamming_rowcount_kernel<NV, NW><<<grid, kRowThreads, 0, st>>>(
+      static_cast<const uint32_t*>(words), static_cast<const int32_t*>(low), npad, n_total, sim,
+      static_cast<int32_t*>(counts));
+}
+
+template <int NV, int NW>
+void launch_extract(dim3 grid, cudaStream_t st, const void* qwords, const void* bwords,
+                    const void* qlow, const void* blow, const void* qidx, int mq, int npad,
+                    int n_total, int sim, void* out) {
+  hamming_extract_kernel<NV, NW><<<grid, kExtractThreads, 0, st>>>(
+      static_cast<const uint32_t*>(qwords), static_cast<const uint32_t*>(bwords),
+      static_cast<const int32_t*>(qlow), static_cast<const int32_t*>(blow),
+      static_cast<const int32_t*>(qidx), mq, npad, n_total, sim, static_cast<uint8_t*>(out));
+}
+
 }  // namespace
 
-extern "C" int rupp_hamming_rowcount(const void* words, const void* low, int nv,
+// nbytes: 32 (PDQ, 8 words) or 8 (pHash, 2 words); nv: 1 or 8.
+extern "C" int rupp_hamming_rowcount(const void* words, const void* low, int nv, int nbytes,
                                      int npad, int n_total, int sim, void* counts,
                                      void* stream) {
   if (npad % kBaseTile != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(npad / kBaseTile, npad / kRowThreads);
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* w = static_cast<const uint4*>(words);
-  const auto* lo = static_cast<const int32_t*>(low);
-  auto* out = static_cast<int32_t*>(counts);
   if (npad > 0) {
-    switch (nv) {
-      case 1:
-        hamming_rowcount_kernel<1><<<grid, kRowThreads, 0, st>>>(w, lo, npad, n_total, sim, out);
-        break;
-      case 8:
-        hamming_rowcount_kernel<8><<<grid, kRowThreads, 0, st>>>(w, lo, npad, n_total, sim, out);
-        break;
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
+    const int key = nv * 100 + nbytes;
+    switch (key) {
+      case 132: launch_rowcount<1, 8>(grid, st, words, low, npad, n_total, sim, counts); break;
+      case 832: launch_rowcount<8, 8>(grid, st, words, low, npad, n_total, sim, counts); break;
+      case 108: launch_rowcount<1, 2>(grid, st, words, low, npad, n_total, sim, counts); break;
+      case 808: launch_rowcount<8, 2>(grid, st, words, low, npad, n_total, sim, counts); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int rupp_hamming_extract(const void* qwords, const void* bwords,
-                                    const void* qlow, const void* blow,
-                                    const void* qidx, int nv, int mq, int npad,
-                                    int n_total, int sim, void* out, void* stream) {
+extern "C" int rupp_hamming_extract(const void* qwords, const void* bwords, const void* qlow,
+                                    const void* blow, const void* qidx, int nv, int nbytes,
+                                    int mq, int npad, int n_total, int sim, void* out,
+                                    void* stream) {
   if (npad % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int stride = npad / 8;
   const dim3 grid((stride + kExtractThreads - 1) / kExtractThreads,
                   (mq + kExtractQueries - 1) / kExtractQueries);
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* q = static_cast<const uint4*>(qwords);
-  const auto* bw = static_cast<const uint4*>(bwords);
-  const auto* ql = static_cast<const int32_t*>(qlow);
-  const auto* bl = static_cast<const int32_t*>(blow);
-  const auto* qi = static_cast<const int32_t*>(qidx);
-  auto* o = static_cast<uint8_t*>(out);
   if (mq > 0 && stride > 0) {
-    switch (nv) {
-      case 1:
-        hamming_extract_kernel<1><<<grid, kExtractThreads, 0, st>>>(q, bw, ql, bl, qi, mq, npad,
-                                                                    n_total, sim, o);
-        break;
-      case 8:
-        hamming_extract_kernel<8><<<grid, kExtractThreads, 0, st>>>(q, bw, ql, bl, qi, mq, npad,
-                                                                    n_total, sim, o);
-        break;
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
+    const int key = nv * 100 + nbytes;
+    switch (key) {
+      case 132: launch_extract<1, 8>(grid, st, qwords, bwords, qlow, blow, qidx, mq, npad, n_total, sim, out); break;
+      case 832: launch_extract<8, 8>(grid, st, qwords, bwords, qlow, blow, qidx, mq, npad, n_total, sim, out); break;
+      case 108: launch_extract<1, 2>(grid, st, qwords, bwords, qlow, blow, qidx, mq, npad, n_total, sim, out); break;
+      case 808: launch_extract<8, 2>(grid, st, qwords, bwords, qlow, blow, qidx, mq, npad, n_total, sim, out); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   return static_cast<int>(cudaGetLastError());

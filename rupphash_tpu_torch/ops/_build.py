@@ -1,7 +1,8 @@
 """Builds and loads the port's CUDA kernels (csrc/*.cu).
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded through ctypes.  The build happens at first use, into
+Each source compiles with its own nvcc process, all started together,
+and the objects link into one shared library with a plain C interface,
+loaded through ctypes.  The build happens at first use, into
 build/rupphash_tpu_torch/ beside the package, and again whenever the
 sources or the flags change (the file name carries their hash).  Every
 C entry point returns cudaGetLastError() after its launch; `check`
@@ -24,14 +25,18 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rupphash_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "rupp_pdq_hash": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "rupp_hamming_rowcount": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "rupp_hamming_extract": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "rupp_pdq_coeffs": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "rupp_hamming_rowcount": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "rupp_hamming_extract": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                             _P],
+    "rupp_hamming_rowcount_mma": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "rupp_restack": [_P, _I, _I, _I, _P, _P],
 }
 
 
@@ -77,16 +82,33 @@ def load() -> Library:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in sources if p.suffix == ".cu"]]
+        objs = [so.with_name(f"{so.stem}.{p.stem}.{os.getpid()}.o")
+                for p in sources if p.suffix == ".cu"]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
+        try:
+            procs = [subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for o, src in zip(objs, (p for p in sources
+                                         if p.suffix == ".cu"))]
+            errs = [proc.communicate()[1] for proc in procs]
+            failed = [(proc.args[-1], proc.returncode, err)
+                      for proc, err in zip(procs, errs) if proc.returncode]
+            if failed:
+                raise KernelBuildError("nvcc failed:\n" + "\n".join(
+                    f"{src} ({rc}):\n{err}" for src, rc, err in failed))
+            link = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            if link.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+            os.replace(tmp, so)   # atomic: concurrent builders never load a partial file
+        finally:
             tmp.unlink(missing_ok=True)
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)   # atomic: concurrent builders never load a partial file
+            for o in objs:
+                o.unlink(missing_ok=True)
+        seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -11,6 +11,10 @@ count sweep K3 gives every row its number of matches, then K4
 re-materializes only the rows with matches as packed bitmasks, which
 are compacted to (position, byte) pairs before they go to the host.
 CPU tensors take the same route through the kernels' plain versions.
+
+`find_edges` is the reference's tile path in plain PyTorch: per-tile
+match counts, then extraction of the hot tiles only.  find_edges_fast
+routes to it where the variant slot 0 is not the base hash.
 """
 
 from __future__ import annotations
@@ -19,6 +23,14 @@ import numpy as np
 import torch
 
 MAX_SIMILARITY_256 = 63  # hamminghash.rs:8
+
+# tile path (find_edges): tile sizes as the reference's, query rows per
+# dot slab (bounds one slab's float32 dots at 512 x V x 2048), and the
+# number of extracted tiles held before their first readback
+QUERY_TILE = 4096
+BASE_TILE = 2048
+_SLAB = 512
+MAX_IN_FLIGHT = 16
 
 # Extraction mask budget per chunk of hot rows (MQ x Npad/8 bytes).  The
 # count sweep knows the hot rows in advance, so chunks only bound device
@@ -72,6 +84,139 @@ def _empty(return_stats, **stats):
     return (empty, empty, stats) if return_stats else (empty, empty)
 
 
+def _tile_mask(var_d, base_d, low_d, q0, q1, b0, b1, nbits, sim, n_total):
+    """(q1-q0, b1-b0) bool match mask of query rows [q0, q1) against base
+    rows [b0, b1): float32 dots of +/-1 vectors (exact for |dot| <= 256),
+    max over variants, threshold, pair and range masks."""
+    dev = var_d.device
+    qv = unpack_bits_pm1(var_d[q0:q1]).float()                 # (tq, V, nbits)
+    bt = unpack_bits_pm1(base_d[b0:b1]).float()                # (tb, nbits)
+    best = torch.matmul(qv, bt.T).amax(dim=1)                  # (tq, tb)
+    dotmin = torch.where(low_d[q0:q1, None] | low_d[None, b0:b1],
+                         nbits, nbits - 2 * sim)
+    qidx = torch.arange(q0, q1, device=dev)[:, None]
+    jidx = torch.arange(b0, b1, device=dev)[None, :]
+    return ((best >= dotmin) & (jidx > qidx) & (jidx < n_total)
+            & (qidx < n_total))
+
+
+def _scan_counts_all(var_d, base_d, low_d, sim, n_total, ta, tb, nbits,
+                     slab):
+    """(Npad/ta, Npad/tb) int64 match counts of the upper-triangle tiles
+    (counterpart of the reference's _scan_counts_all), computed in
+    slabs of `slab` query rows."""
+    npad = var_d.shape[0]
+    counts = torch.zeros((npad // ta, npad // tb), dtype=torch.int64,
+                         device=var_d.device)
+    for qi in range(npad // ta):
+        for bj in range(npad // tb):
+            if (bj + 1) * tb <= qi * ta + 1:    # wholly below the diagonal
+                continue
+            for s0 in range(qi * ta, (qi + 1) * ta, slab):
+                mask = _tile_mask(var_d, base_d, low_d, s0, s0 + slab,
+                                  bj * tb, (bj + 1) * tb, nbits, sim,
+                                  n_total)
+                counts[qi, bj] += mask.sum()
+    return counts
+
+
+def _tile_extract(var_d, base_d, low_d, qi, bj, sim, n_total, ta, tb,
+                  nbits, slab):
+    """One (ta, tb) match tile as (ta, tb/8) packed uint8 bits, on the
+    device (counterpart of the reference's _tile_extract)."""
+    weights = torch.tensor(1 << np.arange(8), dtype=torch.int32,
+                           device=var_d.device)
+    slabs = []
+    for s0 in range(qi * ta, (qi + 1) * ta, slab):
+        mask = _tile_mask(var_d, base_d, low_d, s0, s0 + slab, bj * tb,
+                          (bj + 1) * tb, nbits, sim, n_total)
+        slabs.append((mask.view(slab, tb // 8, 8).to(torch.int32)
+                      * weights).sum(dim=-1).to(torch.uint8))
+    return torch.cat(slabs)
+
+
+def _tile_edges(qi, bj, packed, ta, tb, n):
+    """Read one extracted tile back: (i, j) int64 edges within [0, n)."""
+    gi, gj = unpack_edges_mask(packed.cpu().numpy(), qi * ta, bj * tb, ta,
+                               tb)
+    keep = (gi < n) & (gj < n)
+    return gi[keep].astype(np.int64), gj[keep].astype(np.int64)
+
+
+def find_edges(base_hashes: np.ndarray,
+               variants: np.ndarray | None = None,
+               low_conf: np.ndarray | None = None,
+               similarity: int = 40,
+               query_tile: int = QUERY_TILE,
+               base_tile: int = BASE_TILE,
+               return_stats: bool = False):
+    """All-pairs duplicate edges by tiles, matching queries against
+    `base_hashes` whatever variant slot 0 holds.
+
+    base_hashes: (N, nbytes) uint8 (32 for PDQ, 8 for pHash); variants:
+    optional (N, V, nbytes) uint8 per-file query variants (defaults to
+    the base alone); low_conf: optional (N,) bool, low-confidence hashes
+    pair only at distance 0.  Returns (i, j) int64 arrays with i < j,
+    plus a stats dict if requested.  Hot tiles are extracted on the
+    port's device with at most MAX_IN_FLIGHT of them awaiting readback."""
+    from .. import device
+
+    n, nbytes = base_hashes.shape
+    nbits = nbytes * 8
+    if n == 0:
+        return _empty(return_stats)
+    if variants is None:
+        variants = base_hashes[:, None, :]
+    v = variants.shape[1]
+    if low_conf is None:
+        low_conf = np.zeros(n, dtype=bool)
+    ta, tb = query_tile, base_tile
+    if ta % _SLAB and _SLAB % ta or tb % 8:
+        raise ValueError(f"tiles {ta}x{tb}: the query tile must divide or be "
+                         f"a multiple of {_SLAB}, the base tile of 8")
+    slab = min(ta, _SLAB)
+    npad = -(-n // ta) * ta
+    npad = -(-npad // tb) * tb
+    while npad % ta:            # divisible by both tile sizes
+        npad += tb
+    dev = device.get()
+    var_p = np.zeros((npad, v, nbytes), dtype=np.uint8)
+    var_p[:n] = variants
+    base_p = np.zeros((npad, nbytes), dtype=np.uint8)
+    base_p[:n] = base_hashes
+    low_p = np.ones(npad, dtype=bool)
+    low_p[:n] = low_conf
+    var_d, base_d, low_d = (torch.from_numpy(a).to(dev)
+                            for a in (var_p, base_p, low_p))
+
+    counts = _scan_counts_all(var_d, base_d, low_d, similarity, n, ta, tb,
+                              nbits, slab)
+    hot = torch.nonzero(counts).tolist()
+    # pop before append: at most MAX_IN_FLIGHT extracted tiles are held
+    pending: list = []
+    edges_i: list[np.ndarray] = []
+    edges_j: list[np.ndarray] = []
+    for qi, bj in hot:
+        if len(pending) == MAX_IN_FLIGHT:
+            gi, gj = _tile_edges(*pending.pop(0), ta, tb, n)
+            edges_i.append(gi)
+            edges_j.append(gj)
+        pending.append((qi, bj, _tile_extract(
+            var_d, base_d, low_d, qi, bj, similarity, n, ta, tb, nbits,
+            slab)))
+    for item in pending:
+        gi, gj = _tile_edges(*item, ta, tb, n)
+        edges_i.append(gi)
+        edges_j.append(gj)
+    ei = np.concatenate(edges_i) if edges_i else np.empty(0, dtype=np.int64)
+    ej = np.concatenate(edges_j) if edges_j else np.empty(0, dtype=np.int64)
+    if return_stats:
+        return ei, ej, {"tiles_scanned": int(counts.numel()),
+                        "tiles_extracted": len(hot),
+                        "pairs_checked": n * (n - 1) // 2 * v}
+    return ei, ej
+
+
 def find_edges_fast(base_hashes: np.ndarray,
                     variants: np.ndarray | None = None,
                     low_conf: np.ndarray | None = None,
@@ -92,8 +237,11 @@ def find_edges_fast(base_hashes: np.ndarray,
     if variants is None:
         variants = base_hashes[:, None, :]
     elif not np.array_equal(variants[:, 0], base_hashes):
-        raise ValueError("variants[:, 0] must equal base_hashes: the edge "
-                         "search matches queries against variant slot 0")
+        # the device path matches queries against variant slot 0 as the
+        # base side; any other layout takes the tile path, which honours
+        # base_hashes as given (as the reference does)
+        return find_edges(base_hashes, variants, low_conf, similarity,
+                          return_stats=return_stats)
     if low_conf is None:
         low_conf = np.zeros(n, dtype=bool)
     var_bits, low_d, _, npad = hamming_cuda.prepare_inputs_device(

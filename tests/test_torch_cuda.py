@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from rupphash_tpu_torch.ops import _build, hamming, hamming_cuda, pdq_cuda, pdq_torch
+from rupphash_tpu_torch.ops import (_build, hamming, hamming_cuda, pdq_cuda,
+                                    pdq_hybrid, pdq_torch, restack)
 
 pytestmark = pytest.mark.cuda
 
@@ -79,6 +80,14 @@ def test_cuda_tensors_never_fall_back(dev, monkeypatch):
     low = torch.zeros((1024, 1), dtype=torch.int32, device=dev)
     with pytest.raises(_build.KernelBuildError):
         hamming_cuda.scan_row_counts(var_bits, low, n_total=10)
+    with pytest.raises(_build.KernelBuildError):
+        hamming_cuda.scan_row_counts_pm1(hamming.unpack_bits_pm1(var_bits),
+                                         low, n_total=10)
+    lumas = torch.zeros((2, 64, 48), dtype=torch.uint8, device=dev)
+    with pytest.raises(_build.KernelBuildError):
+        pdq_hybrid.pdq_coeffs(lumas, *pdq_hybrid.operators(64, 48, dev))
+    with pytest.raises(_build.KernelBuildError):
+        restack.restack(torch.zeros((1, 64, 16), device=dev), 2)
 
 
 def test_cuda_inputs_outside_the_kernels_raise(dev):
@@ -93,3 +102,72 @@ def test_cuda_inputs_outside_the_kernels_raise(dev):
     lumas, l_u, r_u, idx, d16 = _k1_args(dev)
     with pytest.raises(ValueError):   # shape index past the operators
         pdq_cuda.pdq_hash(lumas, l_u, r_u, idx + 1, d16)
+    with pytest.raises(ValueError):   # K2 holds at most 512 rows of L
+        pdq_hybrid.pdq_coeffs(
+            torch.zeros((1, 520, 8), dtype=torch.uint8, device=dev),
+            *pdq_hybrid.operators(520, 8, dev))
+    with pytest.raises(ValueError):   # no K6 for 128-bit rows
+        hamming_cuda.scan_row_counts_pm1(
+            torch.ones((8, 1024, 128), dtype=torch.int8, device=dev), low)
+
+
+@pytest.mark.parametrize("shape", [(512, 288), (240, 320), (37, 70)])
+def test_k2_matches_plain_and_k1(dev, shape):
+    rng = np.random.default_rng(2)
+    lumas = torch.from_numpy(rng.integers(0, 256, (12,) + shape,
+                                          dtype=np.uint8)).to(dev)
+    ops = pdq_hybrid.operators(*shape, dev)
+    before = pdq_hybrid.pdq_coeffs.launches
+    kc, kq = pdq_hybrid.pdq_coeffs(lumas, *ops)
+    assert pdq_hybrid.pdq_coeffs.launches == before + 1
+    pc, pq = pdq_hybrid.pdq_coeffs_plain(lumas, *ops)
+    torch.cuda.synchronize()
+    assert float((kq - pq).abs().max()) <= 1e-6
+    assert torch.allclose(kc, pc, rtol=1e-4, atol=0.5)
+    hyb = pdq_hybrid.pdq_hash_batch_hybrid(lumas)
+    k1 = pdq_torch.pdq_hash_batch(lumas)
+    assert torch.equal(hyb["dihedral"], k1["dihedral"])
+    assert float((hyb["quality"] - k1["quality"]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("width", [128, 256, 288, 7])
+def test_k5_matches_plain_bitwise(dev, width):
+    rng = np.random.default_rng(width)
+    x = torch.from_numpy(rng.standard_normal((1, 64, 8 * width))
+                         .astype(np.float32)).to(dev)
+    got = restack.restack(x, width)
+    want = restack.restack_plain(x, width)
+    torch.cuda.synchronize()
+    assert got.shape == (8 * 64, width)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("nbytes", [8, 32])
+@pytest.mark.parametrize("v", [1, 8])
+def test_k6_and_k3_k4_at_both_widths_match_plain(dev, nbytes, v):
+    rng = np.random.default_rng(nbytes + v)
+    n = 2500
+    base = rng.integers(0, 256, (n, nbytes), dtype=np.uint8)
+    base[100] = base[2400]
+    base[5] = base[1500] ^ 3
+    base[6] = base[7]
+    var = rng.integers(0, 256, (n, v, nbytes), dtype=np.uint8)
+    var[:, 0] = base
+    if v > 1:
+        var[900, 5] = base[2000]
+    low = np.zeros(n, dtype=bool)
+    low[[6, 7, 5]] = True
+    var_bits, low_d, _, _ = hamming_cuda.prepare_inputs_device(base, var, low)
+    pm1 = hamming.unpack_bits_pm1(var_bits).contiguous()
+    sim = 2 if nbytes == 8 else 31
+    k3 = hamming_cuda.scan_row_counts(var_bits, low_d, sim=sim, n_total=n)
+    k6 = hamming_cuda.scan_row_counts_pm1(pm1, low_d, sim=sim, n_total=n)
+    plain = hamming_cuda.scan_row_counts_pm1_plain(pm1, low_d, sim=sim,
+                                                   n_total=n)
+    torch.cuda.synchronize()
+    assert torch.equal(k3, plain) and torch.equal(k6, plain)
+    ei, ej = hamming.find_edges_fast(base, var, low, similarity=sim)
+    want = hamming.brute_force_edges(base, var, low, similarity=sim)
+    assert set(zip(ei.tolist(), ej.tolist())) == set(zip(*(a.tolist()
+                                                         for a in want)))
+    assert (100, 2400) in set(zip(ei.tolist(), ej.tolist()))

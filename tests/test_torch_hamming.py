@@ -153,12 +153,18 @@ def test_empty_and_no_matches():
 
 
 def test_variant_slot0_must_be_base():
+    """Variant slot 0 differing from base_hashes: find_edges_fast takes
+    the tile path and returns the reference's edges (it used to raise)."""
     rng = np.random.default_rng(2)
     base = rng.integers(0, 256, (10, 32), dtype=np.uint8)
-    variants = np.repeat(base[:, None, :], 8, axis=1)
+    base[8] = base[2]
+    variants = np.repeat(base[:, None], 8, axis=1)
     variants[3, 0] ^= 1
-    with pytest.raises(ValueError):
-        hamming.find_edges_fast(base, variants)
+    variants[5, 4] = base[9]
+    got = _edge_set(*hamming.find_edges_fast(base, variants))
+    want = _edge_set(*jhamming.find_edges_fast(base, variants))
+    assert got == want == _edge_set(*jhamming.brute_force_edges(base, variants))
+    assert {(2, 8), (5, 9)} <= got
 
 
 def test_mask_layout_and_pm1_match_jax():
@@ -194,3 +200,133 @@ def test_row_match_counts_host_convenience(planted):
     want, _ = hamming_pallas.row_match_counts(base, variants, low,
                                               similarity=31, interpret=True)
     assert n == len(base) and np.array_equal(counts, want)
+
+
+@pytest.mark.parametrize("sim", [31, 40])
+def test_k6_plain_equals_jax_kernel(planted, sim):
+    """K6's plain version on the TPU kernels' own +/-1 int8 input."""
+    base, variants, low = planted
+    var_pm1, low_j, n, npad = hamming_pallas.prepare_inputs(base, variants,
+                                                            low)
+    want = np.asarray(hamming_pallas.scan_row_counts(
+        jax.device_put(var_pm1), jax.device_put(low_j), nbits=256, sim=sim,
+        n_total=n, interpret=True))
+    got = hamming_cuda.scan_row_counts_pm1(
+        torch.from_numpy(var_pm1), torch.from_numpy(low_j), sim=sim,
+        n_total=n)
+    assert got.dtype == torch.int32 and got.shape == (npad, 1)
+    assert got.numpy().tobytes() == want.tobytes()
+    var_bits, low_t, _, _ = hamming_cuda.prepare_inputs(base, variants, low)
+    assert torch.equal(got, hamming_cuda.scan_row_counts(
+        var_bits, low_t, sim=sim, n_total=n))
+    assert hamming_cuda.scan_row_counts_pm1.launches == 0
+    with pytest.raises(ValueError):
+        hamming_cuda.scan_row_counts_pm1(torch.from_numpy(var_pm1).short(),
+                                         torch.from_numpy(low_j))
+
+
+def _reslotted(seed, n=2500, nbytes=32):
+    """Variants whose slot 0 is not the base hash, with planted pairs
+    through the base, through other slots, and low-confidence rows."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (n, nbytes), dtype=np.uint8)
+    base[100] = base[2400]
+    base[17] = _flip(base[1500], [0, 9, 30])
+    variants = rng.integers(0, 256, (n, 4, nbytes), dtype=np.uint8)
+    variants[100, 0] = base[100]
+    variants[17, 1] = base[17]
+    variants[600, 2] = _flip(base[2047], [5])
+    variants[2048, 3] = base[2049]           # straddles the base tiles
+    low = np.zeros(n, dtype=bool)
+    low[[17, 600]] = True
+    return base, variants, low
+
+
+@pytest.mark.parametrize("sim", [0, 8, 31])
+def test_find_edges_matches_reference_tile_path(sim):
+    base, variants, low = _reslotted(3)
+    want = jhamming.find_edges(base, variants, low, similarity=sim,
+                               return_stats=True)
+    got = hamming.find_edges(base, variants, low, similarity=sim,
+                             return_stats=True)
+    assert _edge_set(*got[:2]) == _edge_set(*want[:2])
+    assert got[2] == want[2]
+    oracle = _edge_set(*jhamming.brute_force_edges(base, variants, low,
+                                                   similarity=sim))
+    assert _edge_set(*got[:2]) == oracle
+    rerouted = hamming.find_edges_fast(base, variants, low, similarity=sim,
+                                       return_stats=True)
+    assert _edge_set(*rerouted[:2]) == oracle
+    assert rerouted[2] == want[2]            # the tile path's stats
+
+
+@pytest.mark.parametrize("sim", [0, 3, 12])
+def test_64_bit_hashes_through_find_edges_fast(sim):
+    """8-byte (pHash) hashes through the count sweep and extraction, as
+    the JAX package groups them."""
+    rng = np.random.default_rng(13)
+    n = 1800
+    base = rng.integers(0, 256, (n, 8), dtype=np.uint8)
+    base[4] = base[1700]
+    base[1023] = _flip(base[1024], [1, 2])
+    base[300] = _flip(base[301], range(10))
+    variants = np.repeat(base[:, None], 8, axis=1)
+    variants[50, 6] = _flip(base[60], [7])
+    low = np.zeros(n, dtype=bool)
+    low[[300, 301]] = True
+    got = _edge_set(*hamming.find_edges_fast(base, variants, low,
+                                             similarity=sim))
+    want = _edge_set(*jhamming.find_edges(base, variants, low,
+                                          similarity=sim))
+    assert got == want == _edge_set(*jhamming.brute_force_edges(
+        base, variants, low, similarity=sim))
+    assert (4, 1700) in got and (300, 301) not in got
+    var_bits, low_t, n2, _ = hamming_cuda.prepare_inputs(base, variants, low)
+    var_pm1, low_j, _, _ = hamming_pallas.prepare_inputs(base, variants, low)
+    jax_counts = np.asarray(hamming_pallas.scan_row_counts(
+        jax.device_put(var_pm1), jax.device_put(low_j), nbits=64, sim=sim,
+        n_total=n, interpret=True))
+    assert hamming_cuda.scan_row_counts(
+        var_bits, low_t, sim=sim, n_total=n).numpy().tobytes() == \
+        jax_counts.tobytes()
+
+
+def test_tile_window_holds_at_most_16(monkeypatch):
+    """At most MAX_IN_FLIGHT extracted tiles await readback at any time
+    (the reference allowed one more)."""
+    rng = np.random.default_rng(21)
+    n = 1024
+    base = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    for k in range(0, n - 64, 40):           # hot tiles all over
+        base[k + 37] = base[k]
+    variants = np.repeat(base[:, None], 2, axis=1)
+    variants[:, 0] ^= 0xFF                   # slot 0 is not the base
+    live, peak = [0], [0]
+    extract, edges = hamming._tile_extract, hamming._tile_edges
+
+    def counted_extract(*a, **k):
+        live[0] += 1
+        peak[0] = max(peak[0], live[0])
+        return extract(*a, **k)
+
+    def counted_edges(*a, **k):
+        live[0] -= 1
+        return edges(*a, **k)
+
+    monkeypatch.setattr(hamming, "_tile_extract", counted_extract)
+    monkeypatch.setattr(hamming, "_tile_edges", counted_edges)
+    ei, ej, stats = hamming.find_edges(base, variants, similarity=0,
+                                       query_tile=64, base_tile=64,
+                                       return_stats=True)
+    assert stats["tiles_extracted"] > hamming.MAX_IN_FLIGHT
+    assert peak[0] == hamming.MAX_IN_FLIGHT and live[0] == 0
+    assert _edge_set(ei, ej) == _edge_set(*jhamming.brute_force_edges(
+        base, variants, similarity=0))
+
+
+def test_prof_nz_tool_on_cpu(capsys):
+    from rupphash_tpu_torch.tools import prof_nz
+
+    assert prof_nz.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "equal sets: True" in out and "counts equal: True" in out

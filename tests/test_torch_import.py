@@ -17,8 +17,16 @@ PORT_MODULES = [
     "rupphash_tpu_torch.ops.pdq_cuda",
     "rupphash_tpu_torch.ops.hamming",
     "rupphash_tpu_torch.ops.hamming_cuda",
+    "rupphash_tpu_torch.ops.pdq_hybrid",
+    "rupphash_tpu_torch.ops.phash_torch",
+    "rupphash_tpu_torch.ops.restack",
     "rupphash_tpu_torch.grouping.engine",
     "rupphash_tpu_torch.pipeline.scan",
+    "rupphash_tpu_torch.serve",
+    "rupphash_tpu_torch.tools",
+    "rupphash_tpu_torch.tools.selftest",
+    "rupphash_tpu_torch.tools.mosaic_repro",
+    "rupphash_tpu_torch.tools.prof_nz",
 ]
 
 _CHILD = """
@@ -34,6 +42,18 @@ base = rng.integers(0, 256, (20, 32), dtype=np.uint8)
 base[3] = base[11]
 ei, ej = hamming.find_edges_fast(base)
 assert (ei.tolist(), ej.tolist()) == ([3], [11])
+from rupphash_tpu_torch import serve
+from rupphash_tpu_torch.ops import pdq_hybrid, phash_torch, restack
+from rupphash_tpu_torch.tools import selftest
+hyb = pdq_hybrid.pdq_hash_batch_hybrid(rng.integers(0, 256, (2, 40, 50), dtype=np.uint8))
+assert hyb["dihedral"].shape == (2, 8, 32)
+assert phash_torch.phash_batch(rng.integers(0, 256, (2, 32, 32), dtype=np.uint8))["hash"].shape == (2, 8)
+ix = serve.HashIndex()
+ix.add("/a", bytes(base[3]), 90)
+assert ix.query(np.repeat(base[3][None, None], 8, axis=1), similarity=0)[0][0][:2] == (0, "/a")
+import torch
+assert restack.restack(torch.zeros((1, 64, 16)), 2).shape == (512, 2)
+assert selftest.main([]) == 3
 assert "jax" not in sys.modules, "jax imported"
 assert "triton" not in sys.modules, "triton imported"
 assert _build.load.cache_info().currsize == 0, "kernel library loaded on CPU"
