@@ -1,24 +1,26 @@
-"""Command-line frontend of the port: scan, group and print.
+"""Command-line frontend of the port: scan, group and print; serve.
 
 The flags, the parser and the output formats are rupphash_tpu's own
 (rupphash_tpu/cli.py imports no jax, so its parser and printers are
 reused).  The port runs the duplicate-scan route: scan + group + print
-(or --rehash-only, or the interactive --delete prompt).  The other
-routes (serve, view, TUI, GUI and the cache management flags) are not
-ported yet and exit with status 2 and a message naming the flag.
+(or --rehash-only, or the interactive --delete prompt), the
+near-duplicate service (--serve, serve.py) and the cache management
+flags (--prune, --show-ignored, --unignore).  The view, TUI and GUI
+routes are not ported yet and exit with status 2 and a message naming
+the flag.
 """
 
 from __future__ import annotations
 
+import datetime
 import sys
+from pathlib import Path
 
 from rupphash_tpu import cli as ref_cli
 
-_NOT_PORTED = (("serve", "--serve"), ("view", "--view"),
-               ("view_flatten", "--view-flatten"), ("shuffle", "--shuffle"),
-               ("slideshow", "--slideshow"), ("use_gui", "--use-gui"),
-               ("use_tui", "--use-tui"), ("prune", "--prune"),
-               ("show_ignored", "--show-ignored"), ("unignore", "--unignore"))
+_NOT_PORTED = (("view", "--view"), ("view_flatten", "--view-flatten"),
+               ("shuffle", "--shuffle"), ("slideshow", "--slideshow"),
+               ("use_gui", "--use-gui"), ("use_tui", "--use-tui"))
 
 
 def build_parser():
@@ -60,6 +62,51 @@ def show_build_info():
     print(json.dumps(info, indent=2))
 
 
+def cache_command(args) -> int | None:
+    """--prune, --show-ignored and --unignore: the reference's cache
+    management routes (rupphash_tpu/cli.py:296-342), which touch only
+    the cache.  None when none of them was asked for."""
+    if args.prune is None and not args.show_ignored and not args.unignore:
+        return None
+    store = ref_cli._open_store(args)
+    if store is None:
+        if args.prune is not None:
+            print("--prune requires the cache", file=sys.stderr)
+        return 2
+    try:
+        if args.prune is not None:
+            res = store.prune(args.prune)
+            print(f"Pruned {res['dropped_meta']} stale entries, "
+                  f"swept {res['swept_orphans']} orphans.")
+        elif args.show_ignored:
+            for ch, e in store.list_ignored():
+                ph = e.pdqhash.hex() if e.pdqhash else "-"
+                ts = datetime.datetime.fromtimestamp(e.timestamp).isoformat()
+                print(f"{ch.hex()}  uuid={e.group_uuid.hex()}  {ts}  "
+                      f"pdq={ph}")
+        else:
+            total = 0
+            for val in args.unignore:
+                # a group UUID (hex), a PDQ hash (hex), else a file path
+                try:
+                    raw = bytes.fromhex(val)
+                except ValueError:
+                    raw = None
+                if raw is not None and len(raw) == 16:
+                    total += store.unignore(group_uuid=raw)
+                elif raw is not None and len(raw) == 32:
+                    total += store.unignore(pdqhash=raw)
+                elif Path(val).exists():
+                    from rupphash_tpu.utils import hashes as H
+                    ch = H.content_hash(store.content_key,
+                                        Path(val).read_bytes())
+                    total += store.unignore(content_hash=ch)
+            print(f"Cleared ignore flag on {total} entries.")
+    finally:
+        store.close()
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -79,9 +126,15 @@ def main(argv=None) -> int:
     if not 0 <= similarity <= 63:
         print("Similarity must be 0-63 for PDQ hash.", file=sys.stderr)
         return 2
+    code = cache_command(args)
+    if code is not None:
+        return code
     if not args.paths:
         print("error: paths required", file=sys.stderr)
         return 2
+    if args.serve:
+        from . import serve
+        return serve.run_serve(args)
 
     from .pipeline import scan as scanmod
 

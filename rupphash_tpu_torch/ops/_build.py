@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -72,10 +73,21 @@ def _digest(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 @functools.cache
 def load() -> Library:
     """Build (if needed) and load the kernel library; raises
-    KernelBuildError when nvcc is missing or the build fails."""
+    KernelBuildError when nvcc is missing or the build fails.  Threads
+    that ask first at the same time (the HTTP service hashes on one
+    thread per request) build once: the others wait and load the file."""
+    with _BUILD_LOCK:
+        return _build_and_load()
+
+
+def _build_and_load() -> Library:
     sources = _sources()
     so = BUILD_DIR / f"librupphash_cuda_{_digest(sources)}.so"
     seconds = 0.0
@@ -117,6 +129,13 @@ def load() -> Library:
     lib.rupp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rupp_cuda_error_string.restype = ctypes.c_char_p
     return Library(lib, so, seconds)
+
+
+def count_launch(wrapper):
+    """Add one to a kernel wrapper's launch count; a lock makes the
+    read-modify-write safe when wrappers launch from several threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(err: int, what: str):

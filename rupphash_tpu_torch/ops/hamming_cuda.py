@@ -152,7 +152,7 @@ def scan_row_counts(var_bits, low_i32, *, sim=40, n_total=0):
         int(n_total), int(sim), counts.data_ptr(),
         _build.stream_ptr(var_bits))
     _build.check(err, "hamming_rowcount_kernel")
-    scan_row_counts.launches += 1
+    _build.count_launch(scan_row_counts)
     return counts
 
 
@@ -197,7 +197,7 @@ def scan_row_counts_pm1(var_pm1, low_i32, *, sim=40, n_total=0):
         int(n_total), int(sim), counts.data_ptr(),
         _build.stream_ptr(var_pm1))
     _build.check(err, "hamming_rowcount_mma_kernel")
-    scan_row_counts_pm1.launches += 1
+    _build.count_launch(scan_row_counts_pm1)
     return counts
 
 
@@ -273,7 +273,7 @@ def extract_rows_packed(q_bits, base_bits, qlow, blow, qidx, *, sim=40,
         blow.data_ptr(), qidx.data_ptr(), v, nbytes, mq, npad, int(n_total),
         int(sim), out.data_ptr(), _build.stream_ptr(q_bits))
     _build.check(err, "hamming_extract_kernel")
-    extract_rows_packed.launches += 1
+    _build.count_launch(extract_rows_packed)
     return out
 
 

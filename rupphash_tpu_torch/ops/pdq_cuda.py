@@ -69,7 +69,7 @@ def pdq_hash(lumas, l_unique, r_unique, shape_idx, d16) -> dict:
         shape_idx.data_ptr(), d16.data_ptr(), dihedral.data_ptr(),
         quality.data_ptr(), coeffs.data_ptr(), _build.stream_ptr(lumas))
     _build.check(err, "pdq_hash_kernel")
-    pdq_hash.launches += 1
+    _build.count_launch(pdq_hash)
     return {"hash": dihedral[:, 0, :], "dihedral": dihedral,
             "quality": quality, "coeffs": coeffs}
 

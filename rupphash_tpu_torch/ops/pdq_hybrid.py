@@ -104,7 +104,7 @@ def pdq_coeffs(lumas, l1, l2, l3, r_op, d16):
         l3.data_ptr(), r_op.data_ptr(), d16.data_ptr(), coeffs.data_ptr(),
         quality.data_ptr(), _build.stream_ptr(lumas))
     _build.check(err, "pdq_coeffs_kernel")
-    pdq_coeffs.launches += 1
+    _build.count_launch(pdq_coeffs)
     return coeffs, quality
 
 

@@ -39,7 +39,7 @@ def restack(x: torch.Tensor, width: int) -> torch.Tensor:
     err = _build.load().lib.rupp_restack(x.data_ptr(), rows, slices, width,
                                          out.data_ptr(), _build.stream_ptr(x))
     _build.check(err, "restack_kernel")
-    restack.launches += 1
+    _build.count_launch(restack)
     return out
 
 

@@ -362,7 +362,7 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
 
     # Phase 1 (parent): cheap stat + cache probes; full hits finalize
     # immediately.  Phase 2: misses fan out to worker *processes*
-    # (spawned; rupphash_tpu/pipeline/heavy.py imports no jax) whose
+    # (spawned; pipeline/heavy.py imports neither jax nor torch) whose
     # results stream back through consume() so device batching overlaps
     # decode.
     content_key = store.content_key if store else None
@@ -427,7 +427,12 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
             write_buf.clear()
 
     if misses:
-        from rupphash_tpu.pipeline import heavy as heavymod
+        from . import heavy as heavymod
+
+        # where a preview-less raw is demosaiced: this process's device
+        # inline and in threads; "cpu" in spawned workers, so that none
+        # of them opens a CUDA context of its own
+        here = str(device.get())
 
         def handle(probe, heavy):
             if heavy is None:
@@ -448,7 +453,7 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
                 t0 = _time.perf_counter()
                 try:
                     heavy = heavymod.heavy_prepare(str(p), content_key,
-                                                   want_px)
+                                                   want_px, here)
                 except Exception:
                     heavy = None
                 stats.add_stage("heavy", _time.perf_counter() - t0)
@@ -465,7 +470,8 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
                 pool = ThreadPoolExecutor(max_workers=workers)
             try:
                 futs = {pool.submit(heavymod.heavy_prepare, str(p),
-                                    content_key, want_px): probe
+                                    content_key, want_px,
+                                    "cpu" if use_procs else here): probe
                         for p, probe in misses}
                 for fut in as_completed(futs):
                     probe = futs[fut]
@@ -558,9 +564,15 @@ def scan_and_group(paths, cfg: ScanConfig | None = None, store=None,
                            f"decoded={stats.decoded} "
                            f"failed={stats.failed}")
     trace.debug("SCAN", f"cache counters: {trace.counters()}")
-    trace.debug("KERNELS", " ".join(f"{k}={v}" for k, v in (
+    trace.debug("KERNELS", kernel_counts())
+    return groups, infos, records, stats
+
+
+def kernel_counts() -> str:
+    """The scan route's kernel launch counts, as the [KERNELS] line
+    prints them."""
+    return " ".join(f"{k}={v}" for k, v in (
         ("pdq_hash_kernel", pdq_cuda.pdq_hash.launches),
         ("hamming_rowcount_kernel", hamming_cuda.scan_row_counts.launches),
         ("hamming_extract_kernel",
-         hamming_cuda.extract_rows_packed.launches))))
-    return groups, infos, records, stats
+         hamming_cuda.extract_rows_packed.launches)))

@@ -1,35 +1,53 @@
-"""Near-duplicate lookup index: persistent hashes + device query path.
+"""Near-duplicate lookup service: persistent hash index + device query path.
 
-Counterpart of rupphash_tpu/serve.py's device index (`HashIndex` and
-its query ops).  The corpus's packed hashes stay resident on the port's
-device, padded to a capacity; a query batch of (Q, V, nbytes) dihedral
-variants is one +/-1 float32 matmul against the corpus (exact for
-|dot| <= 256), min over the variants, the quality gate and a top-k
-selection on the device, so only O(Q x k) results come back.
+Counterpart of rupphash_tpu/serve.py.  The corpus's packed hashes stay
+resident on the port's device, padded to a capacity; a query batch of
+(Q, V, nbytes) dihedral variants is one +/-1 float32 matmul against the
+corpus (exact for |dot| <= 256), min over the variants, the quality
+gate and a top-k selection on the device, so only O(Q x k) results come
+back.  Incoming images are decoded on the host (RAW bodies demosaiced
+on the device, pipeline/decode.py) and hashed by K1 (ops/pdq_cuda.py),
+one image per request.
+
+Surfaces, as the reference's:
+  * library  - HashIndex (build/save/load/add/remove) + NearDupService
+  * HTTP     - POST /v1/query (raw image bytes) -> JSON matches,
+               POST /v1/add?path=... -> index insert,
+               POST /v1/remove?path=... -> index delete,
+               GET  /v1/stats
+  * CLI      - `python -m rupphash_tpu_torch --serve DIR [--port N]`
 
 Low-quality corpus entries only match at distance 0, the scanner's
 gating rule (scanner.rs:1588-1594); removed entries are tombstones
 until compaction.  Index files are the reference's `.npz` format, so
-either package loads the other's.
-
-Not ported yet (ROADMAP.md §1, "the rest of serve"): NearDupService,
-the HTTP surface, run_serve, the CLI's --serve, and mesh-sharded queries.
+either package loads the other's.  The corpus lives on one device:
+mesh-sharded queries are not ported yet (ROADMAP.md §1, parallel).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
 
+from rupphash_tpu.pipeline.decode import prepare_luma_fast
+from rupphash_tpu.utils import netguard
+
 from . import device
-from .ops import hamming
+from .ops import hamming, pdq_torch
+from .pipeline import decode
 
 PDQ_MIN_QUALITY = 50
+
+_MESH_NOT_PORTED = ("mesh-sharded serving is not ported yet (ROADMAP.md "
+                    "§1, parallel: query_mesh and multi-device run_serve)")
 
 # device-resident per-row status codes (int8): OK matches normally, LOW
 # only matches at distance 0, DEAD never matches (tombstoned by
@@ -307,9 +325,7 @@ class HashIndex:
         (device padding rows) and the low-quality gate must never be
         selectable by a client-supplied radius."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded queries are not ported yet (ROADMAP.md §1, "
-                "the rest of serve: query_mesh)")
+            raise NotImplementedError(_MESH_NOT_PORTED)
         similarity = max(0, min(int(similarity), self.nbytes * 8 - 1))
         if len(self) == 0:
             return [[] for _ in range(len(variants))]
@@ -329,3 +345,245 @@ class HashIndex:
                         for d, i in zip(drow[sel][:max_results],
                                         irow[sel][:max_results])])
         return out
+
+
+class NearDupService:
+    """Decode -> hash (K1) -> index query, plus the HTTP surface; the
+    reference's NearDupService (rupphash_tpu/serve.py:444-658) with the
+    same endpoints, status codes, JSON keys and gates."""
+
+    # /v1/query accepts raw image bytes; cap at a realistic image size
+    MAX_BODY = 64_000_000
+
+    def __init__(self, index: HashIndex, similarity: int | None = 40,
+                 roots=None, mesh=None, allow_hosts=()):
+        if mesh is not None:
+            raise NotImplementedError(_MESH_NOT_PORTED)
+        self.index = index
+        self.device = device.get()
+        # the CLI leaves --similarity None; the service uses the
+        # reference default 40 (phdupes.rs:195-282)
+        self.similarity = 40 if similarity is None else int(similarity)
+        self.queries = 0
+        self._lock = threading.Lock()
+        # /v1/add and /v1/remove only touch files under these roots
+        self.roots = [Path(r).resolve() for r in (roots or [])]
+        # Host names accepted beyond IP literals and localhost
+        # (utils/netguard DNS-rebinding gate; --allow-host)
+        self.allow_hosts = tuple(allow_hosts or ())
+
+    def path_allowed(self, path: str) -> bool:
+        if not self.roots:
+            return False
+        try:
+            p = Path(path).resolve()
+        except (OSError, ValueError):
+            # ValueError: embedded NUL byte, answered 403
+            return False
+        return any(p == r or r in p.parents for r in self.roots)
+
+    def _hash_image(self, img):
+        """Decoded image -> ((8, nbytes) u8 variants, quality 0-100) or
+        None; one K1 launch on a CUDA device."""
+        luma = prepare_luma_fast(img)
+        if luma is None:
+            return None
+        out = pdq_torch.pdq_hash_batch(np.asarray(luma)[None])
+        # device quality is [0, 1]; records and the index use the
+        # reference's 0-100 scale (scanner.rs quality < 50 gate)
+        return (out["dihedral"][0].cpu().numpy(),
+                float(out["quality"][0]) * 100.0)
+
+    def hash_bytes(self, data: bytes):
+        """Image bytes -> (variants (8, 32) u8, quality) or None."""
+        img = decode.sniff_decode_bytes(data, device=self.device)
+        return None if img is None else self._hash_image(img)
+
+    def query_bytes(self, data: bytes, similarity: int | None = None,
+                    max_results: int = 100):
+        hashed = self.hash_bytes(data)
+        if hashed is None:
+            return None
+        variants, quality = hashed
+        sim = self.similarity if similarity is None else similarity
+        if quality < PDQ_MIN_QUALITY:
+            sim = 0  # low-quality query: exact only (scanner gate)
+        matches = self.index.query(variants[None], sim, max_results)[0]
+        with self._lock:
+            self.queries += 1
+        return {"quality": quality,
+                "hash": bytes(variants[0]).hex(),
+                "matches": [{"path": p, "distance": d, "index": i}
+                            for i, p, d in matches]}
+
+    def add_path(self, path: str):
+        img, _ = decode.load_image(path, device=self.device)
+        hashed = None if img is None else self._hash_image(img)
+        if hashed is None:
+            return None
+        variants, q = hashed
+        h = bytes(variants[0])
+        self.index.add(path, h, int(round(q)))
+        return {"path": path, "hash": h.hex(), "quality": q,
+                "size": len(self.index)}
+
+    # ------------------------------------------------------------ http
+    def make_handler(service):
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _send(self, code, body: bytes, ctype: str):
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _json(self, obj, code=200):
+                self._send(code, json.dumps(obj).encode(),
+                           "application/json")
+
+            def _gate(self, mutating: bool) -> bool:
+                """Reject DNS-rebound Hosts everywhere, and Origin-
+                bearing (browser cross-origin) mutation requests."""
+                if not netguard.host_allowed(self.headers.get("Host", ""),
+                                             service.allow_hosts):
+                    self._json({"error": "forbidden host (use an IP "
+                                "literal, localhost, or start with "
+                                "--allow-host NAME)"}, 403)
+                    return False
+                if mutating and self.headers.get("Origin"):
+                    self._json({"error": "browser cross-origin "
+                                "mutation blocked"}, 403)
+                    return False
+                return True
+
+            def do_GET(self):
+                u = urlparse(self.path)
+                if not self._gate(mutating=False):
+                    return
+                if u.path == "/":
+                    self._send(200, _INDEX_PAGE, "text/html; charset=utf-8")
+                elif u.path == "/v1/stats":
+                    self._json({"indexed": len(service.index),
+                                "queries": service.queries,
+                                "similarity": service.similarity})
+                else:
+                    self._json({"error": "not found"}, 404)
+
+            def do_POST(self):
+                u = urlparse(self.path)
+                q = parse_qs(u.query)
+                if not self._gate(
+                        mutating=u.path in ("/v1/add", "/v1/remove")):
+                    return
+                if u.path == "/v1/query":
+                    try:
+                        n = int(self.headers.get("Content-Length", "0"))
+                    except ValueError:
+                        n = -1
+                    if n <= 0 or n > service.MAX_BODY:
+                        self._json({"error": "bad length"}, 400)
+                        return
+                    data = self.rfile.read(n)
+                    try:
+                        sim = int(q.get("similarity",
+                                        [service.similarity])[0])
+                    except (ValueError, TypeError):
+                        sim = service.similarity
+                    out = service.query_bytes(data, sim)
+                    if out is None:
+                        self._json({"error": "undecodable image"}, 415)
+                    else:
+                        self._json(out)
+                elif u.path == "/v1/remove":
+                    path = q.get("path", [""])[0]
+                    if path and not service.path_allowed(path):
+                        self._json({"error": "path outside indexed "
+                                    "roots"}, 403)
+                        return
+                    n = service.index.remove(path) if path else 0
+                    self._json({"removed": n,
+                                "size": len(service.index)})
+                elif u.path == "/v1/add":
+                    path = q.get("path", [""])[0]
+                    if not service.path_allowed(path):
+                        self._json({"error": "path outside indexed "
+                                    "roots"}, 403)
+                        return
+                    if not path or not Path(path).is_file():
+                        self._json({"error": "no such file"}, 404)
+                        return
+                    out = service.add_path(path)
+                    if out is None:
+                        self._json({"error": "undecodable image"}, 415)
+                    else:
+                        self._json(out)
+                else:
+                    self._json({"error": "not found"}, 404)
+
+        return Handler
+
+    def serve(self, host: str = "127.0.0.1", port: int = 0):
+        httpd = ThreadingHTTPServer((host, port), self.make_handler())
+        return httpd, httpd.server_address[1]
+
+
+_INDEX_PAGE = (
+    "<!DOCTYPE html><title>rupphash near-duplicate service</title><pre>"
+    "rupphash near-duplicate lookup service\n\n"
+    "POST /v1/query[?similarity=D]  raw image bytes -> JSON matches\n"
+    "POST /v1/add?path=P            hash + index a local file\n"
+    "POST /v1/remove?path=P         drop a path from the index\n"
+    "GET  /v1/stats                 index size / query count\n\n"
+    "curl -s --data-binary @photo.jpg http://HOST:PORT/v1/query | jq .</pre>"
+).encode()
+
+
+def run_serve(args) -> int:
+    """CLI entry for `--serve`: scan the given paths into an index (or
+    load --index-file) and answer queries until interrupted; the index
+    is saved to --index-file on the way out, /v1/add mutations
+    included."""
+    from rupphash_tpu.utils import trace
+
+    from .pipeline import scan as scanmod
+
+    index_file = getattr(args, "index_file", None)
+    if index_file and Path(index_file).exists():
+        index = HashIndex.load(index_file)
+        print(f"loaded index: {len(index)} hashes from {index_file}",
+              file=sys.stderr)
+    else:
+        records, stats = scanmod.scan(args.paths, scanmod.ScanConfig(), None)
+        index = HashIndex.from_records(records)
+        print(f"indexed {len(index)} images ({stats.failed} failures)",
+              file=sys.stderr)
+        if index_file:
+            index.save(index_file)
+            print(f"saved index to {index_file}", file=sys.stderr)
+    if torch.cuda.device_count() > 1:
+        print(f"{torch.cuda.device_count()} CUDA devices visible; the "
+              f"corpus stays on {device.get()} ({_MESH_NOT_PORTED})",
+              file=sys.stderr)
+    svc = NearDupService(index, similarity=args.similarity,
+                         roots=list(getattr(args, "paths", []) or []),
+                         allow_hosts=tuple(
+                             getattr(args, "allow_host", None) or ()))
+    host = getattr(args, "host", "127.0.0.1")
+    httpd, port = svc.serve(host=host, port=getattr(args, "port", 0) or 0)
+    print(f"near-duplicate service at http://{host}:{port}/v1/  "
+          f"(POST /v1/query with image bytes)", file=sys.stderr, flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        if index_file:
+            index.save(index_file)
+            print(f"saved index ({len(index)} hashes) to {index_file}",
+                  file=sys.stderr)
+        trace.debug("KERNELS", scanmod.kernel_counts())
+    return 0

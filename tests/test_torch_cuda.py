@@ -171,3 +171,122 @@ def test_k6_and_k3_k4_at_both_widths_match_plain(dev, nbytes, v):
     assert set(zip(ei.tolist(), ej.tolist())) == set(zip(*(a.tolist()
                                                          for a in want)))
     assert (100, 2400) in set(zip(ei.tolist(), ej.tolist()))
+
+
+def _mosaic_scene(h, w, cfa, seed):
+    """A smooth random linear scene sampled through a CFA (u16)."""
+    rng = np.random.default_rng(seed)
+    small = torch.from_numpy(rng.random((1, 3, 12, 16), dtype=np.float32))
+    lin = torch.nn.functional.interpolate(small, size=(h, w), mode="bilinear",
+                                          align_corners=False)[0].numpy()
+    n = cfa.shape[0]
+    site = np.tile(cfa, (-(-h // n), -(-w // n)))[:h, :w]
+    m = np.take_along_axis(lin, site[None], axis=0)[0]
+    return np.round(512 + m * 15000).astype(np.uint16)
+
+
+@pytest.mark.parametrize("pattern", ["rggb", "xtrans"])
+def test_demosaic_on_cuda_matches_cpu(dev, pattern):
+    """The demosaic's elementwise stencils on the card against the same
+    code on the CPU: at most 1 u8 level on at most 1e-4 of the values."""
+    from types import SimpleNamespace
+
+    from rupphash_tpu_torch.ops import demosaic
+
+    cfa = (np.array([[0, 1], [1, 2]]) if pattern == "rggb" else
+           np.array([[1, 2, 1, 1, 0, 1], [0, 1, 0, 2, 1, 2],
+                     [1, 2, 1, 1, 0, 1], [1, 0, 1, 1, 2, 1],
+                     [2, 1, 2, 0, 1, 0], [1, 0, 1, 1, 2, 1]]))
+    raw = SimpleNamespace(mosaic=_mosaic_scene(600, 900, cfa, 4), cfa=cfa,
+                          black=512.0, white=16383.0, linear=False,
+                          as_shot_neutral=np.array([0.5, 1.0, 0.7]),
+                          color_matrix=demosaic._XYZ2SRGB)
+    got = demosaic.process_raw(raw, dev)
+    want = demosaic.process_raw(raw, "cpu")
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert got.shape == want.shape and int(diff.max()) <= 1
+    assert np.count_nonzero(diff) <= 1e-4 * diff.size
+
+
+def test_http_query_on_cuda_matches_host_oracle(dev, tmp_path):
+    """The service on the card: /v1/add hashes with K1, /v1/query answers
+    as a numpy oracle over the index's host arrays does (min over the 8
+    variants of popcount(XOR), low-quality and dead gates, radius, sort
+    by distance then index)."""
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from rupphash_tpu_torch import serve
+    from rupphash_tpu_torch.ops import pdq_cuda, pdq_torch
+
+    rng = np.random.default_rng(6)
+    ix = serve.HashIndex()
+    for i in range(3000):
+        ix.add(f"/syn/{i}", bytes(rng.integers(0, 256, 32, dtype=np.uint8)),
+               quality=int(rng.integers(30, 101)))
+    imgs = []
+    for k in range(4):
+        small = rng.integers(0, 256, (24, 32, 3), dtype=np.uint8)
+        img = np.asarray(Image.fromarray(small).resize((320, 240),
+                                                       Image.BILINEAR))
+        Image.fromarray(img).save(tmp_path / f"img{k}.png")
+        imgs.append(img)
+    svc = serve.NearDupService(ix, roots=[tmp_path])
+    assert svc.device.type == "cuda"
+    httpd, port = svc.serve()
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+
+    def post(path, data):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     data=data, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+
+    try:
+        before = pdq_cuda.pdq_hash.launches
+        for k in range(4):
+            h = bytes.fromhex(post(f"/v1/add?path={tmp_path}/img{k}.png",
+                                   b"")["hash"])
+            for dist in (0, 5, 30, 45):           # planted near copies
+                flip = bytearray(h)
+                for p in rng.choice(256, dist, replace=False):
+                    flip[p // 8] ^= 1 << (p % 8)
+                ix.add(f"/near/{k}/{dist}", bytes(flip),
+                       quality=20 if dist == 5 else 90)
+        ix.remove("/near/1/0")
+        bodies = []
+        for img in imgs:
+            buf = io.BytesIO()
+            Image.fromarray(np.rot90(img) if len(bodies) % 2 else img).save(
+                buf, format="JPEG", quality=85)
+            bodies.append(buf.getvalue())
+        answers = [post("/v1/query", b) for b in bodies]
+        assert pdq_cuda.pdq_hash.launches == before + 8
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+    n = ix._n
+    base = ix._hashes[:n]
+    rank = np.cumsum(~ix._dead[:n]) - 1
+    for body, got in zip(bodies, answers):
+        luma = serve.prepare_luma_fast(serve.decode.sniff_decode_bytes(
+            body, device="cpu"))
+        out = pdq_torch.pdq_hash_batch(torch.from_numpy(luma[None]))  # plain
+        variants = out["dihedral"][0].numpy()
+        assert got["hash"] == bytes(variants[0]).hex()
+        dist = np.unpackbits(base[None] ^ variants[:, None], axis=2).sum(
+            axis=2).min(axis=0)
+        radius = 40 if got["quality"] >= 50 else 0
+        ok = (~ix._dead[:n] & ((ix._quality[:n] >= 50) | (dist == 0))
+              & (dist <= radius))
+        sel = np.flatnonzero(ok)
+        sel = sel[np.lexsort((sel, dist[sel]))][:100]
+        assert got["matches"] == [
+            {"path": ix._paths[i], "distance": int(dist[i]),
+             "index": int(rank[i])} for i in sel]
+        assert got["matches"], "every query has planted matches"

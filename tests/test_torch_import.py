@@ -20,7 +20,10 @@ PORT_MODULES = [
     "rupphash_tpu_torch.ops.pdq_hybrid",
     "rupphash_tpu_torch.ops.phash_torch",
     "rupphash_tpu_torch.ops.restack",
+    "rupphash_tpu_torch.ops.demosaic",
     "rupphash_tpu_torch.grouping.engine",
+    "rupphash_tpu_torch.pipeline.decode",
+    "rupphash_tpu_torch.pipeline.heavy",
     "rupphash_tpu_torch.pipeline.scan",
     "rupphash_tpu_torch.serve",
     "rupphash_tpu_torch.tools",
@@ -67,6 +70,57 @@ def test_port_imports_and_runs_without_jax():
         cwd=ROOT, capture_output=True, text=True, timeout=300,
         env={**os.environ, "PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT),
              "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK"
+
+
+_RAW_CHILD = """
+import sys
+sys.modules["jax"] = None          # any import of jax now fails
+import json, pathlib, tempfile, threading, urllib.request
+from PIL import Image
+sys.path.insert(0, "tests")
+from test_dng import _scene, write_dng
+from rupphash_tpu_torch import serve
+from rupphash_tpu_torch.ops import demosaic
+from rupphash_tpu_torch.pipeline import scan
+rgb, mosaic = _scene(240, 320, seed=11)
+d = pathlib.Path(tempfile.mkdtemp())
+dng = write_dng(mosaic, cm=demosaic._XYZ2SRGB)     # no embedded preview
+(d / "photo.dng").write_bytes(dng)
+Image.fromarray(rgb).save(d / "twin.png")
+groups, infos, records, stats = scan.scan_and_group(
+    [d], scan.ScanConfig(batch_size=2))
+assert stats.failed == 0, f"{stats.failed} files failed to decode"
+assert [sorted(f.path.name for f in g) for g in groups] == [
+    ["photo.dng", "twin.png"]], groups
+svc = serve.NearDupService(serve.HashIndex.from_records(records))
+httpd, port = svc.serve()
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/query", data=dng,
+                             method="POST")
+with urllib.request.urlopen(req, timeout=60) as r:
+    out = json.loads(r.read())
+httpd.shutdown()
+httpd.server_close()
+assert sorted(pathlib.Path(m["path"]).name for m in out["matches"]) == [
+    "photo.dng", "twin.png"], out
+assert sys.modules.pop("jax") is None
+assert not [m for m in sys.modules if m.startswith("jax")], "jax imported"
+assert "jax" not in sys.modules
+print("OK")
+"""
+
+
+def test_preview_less_raw_scans_and_serves_without_jax(tmp_path):
+    """A preview-less DNG is decoded by the port's demosaic, grouped with
+    its PNG twin by the scan and matched by a /v1/query of its bytes,
+    with every import of jax failing (as on a machine without jax)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _RAW_CHILD], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT), "CUDA_VISIBLE_DEVICES": "",
+             "HOME": str(tmp_path)})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "OK"
 
