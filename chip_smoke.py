@@ -8,18 +8,21 @@ failure exits non-zero:
   1. environment: torch/CUDA versions, card name and power limit,
      float32 precision flags, Pillow/cryptography availability;
   2. build of the CUDA kernels from rupphash_tpu_torch/csrc;
-  3. K1 (PDQ hash) against its plain PyTorch version and the numpy
-     golden, at B=256 for 512x288, 320x240 and a mixed-shape batch;
+  3. K1 (PDQ hash) against its plain PyTorch version (dihedral and
+     quality bit-identical) and the numpy golden, at B=256 for 512x288,
+     320x240 and a batch of 8 mixed shapes, with its bound and share;
   4. K2 (hybrid PDQ front half) against its plain version, and its
      hashes against K1's and the numpy golden, on phase 3's batches and
      a B=256 batch of 512 rows x 288 columns (the self-test's shape);
   5. K3 (count sweep) and K4 (hot-row extraction) against their plain
-     versions at N=100,000 hashes with planted clusters, and the edge
-     search against the brute-force oracle at N=4,096;
+     versions at N=100,000 hashes with planted clusters (sim 31 and 40),
+     and the edge search against the brute-force oracle at N=4,096;
   6. K6 (int8 tensor-core count sweep) against K3 and its plain
-     version on phase 5's N=100,000 hashes, K6 ms beside K3 ms;
+     version on phase 5's N=100,000 hashes, K6 ms beside K3 ms; then K3
+     against K6 at N=1,000,000 x 8 variants, sim 40, and the edge search
+     there against a host oracle on a sample of rows;
   7. K5 (column restack) against its plain version, bit for bit, at
-     W = 128, 256, 288;
+     W = 128, 256, 288, beside one PyTorch permute-and-copy;
   8. demosaic: the port's RAW pipeline (plain PyTorch, no kernel) on
      the card against the CPU at 24 MP, RGGB with a colour matrix and
      X-Trans: at most 1 u8 level apart on at most 1e-4 of the values;
@@ -41,7 +44,10 @@ failure exits non-zero:
      process, must exit 0; their launch counts show that the self-test
      ran K2, mosaic_repro K5 and prof_nz K6 (which holds K6 against K3
      and its plain version at N=200,000).
-Then one JSON line with each kernel's numbers, and the device JSON as
+Then one JSON line with each kernel's numbers (its time, its plain
+version's, its bound on this card from the run's own shapes and what
+sets it, its share of that bound, and the time of one PyTorch call that
+computes the same function where there is one), and the device JSON as
 the last line.  Every kernel-vs-plain timing runs plain, kernel, kernel,
 plain on the same inputs and reports the mean of the two of each.  The
 launch counts in the JSON line come from the runs of phase 9 (K1, K3,
@@ -119,6 +125,44 @@ def textured_lumas(gen, b, rows, cols, dev):
     return big.round().clamp(0, 255).to(torch.uint8)[:, 0]
 
 
+# Published peaks of one H100 SXM at 700 W (dense): float32 outside the
+# tensor cores, bf16 and int8 on them, HBM bandwidth.
+FP32_FLOPS, BF16_FLOPS, INT8_OPS, HBM_BYTES = 67e12, 989e12, 1979e12, 3.35e12
+
+
+def bound(ops_s: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations'
+    time at their peak rate(s) and the bytes moved once over HBM."""
+    bytes_s = nbytes / HBM_BYTES
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+
+
+def with_share(res: dict) -> dict:
+    res["share"] = res["bound_ms"] / res["ms"]
+    res.setdefault("library_ms", None)
+    return res
+
+
+def k1_bound(shapes, planes_shape, n_ops) -> dict:
+    """K1 on images of true (rows, cols) `shapes`, read as u8 planes
+    padded to planes_shape (B, Hp, Wp), with n_ops (S) operator pairs:
+    X.R^T, L.XR and the two D16 products in fp32 FMA."""
+    b, hp, wp = planes_shape
+    flop = sum(2 * (64 * r * c + 64 * 64 * r + 16 * 64 * 64 + 16 * 16 * 64)
+               for r, c in shapes)
+    nbytes = (b * hp * wp + 4 * n_ops * 64 * (hp + wp) + 4 * 16 * 64
+              + b * (8 * 32 + 4 + 4 * 256))
+    return bound(flop / FP32_FLOPS, nbytes)
+
+
+def sweep_bound(n, v, nbits, in_bytes) -> dict:
+    """K3/K6: every pair j > i < n, all v variants, a +/-1 dot of nbits
+    (2 * nbits int8 operations); the hashes read once, counts written."""
+    return bound(n * (n - 1) / 2 * v * 2 * nbits / INT8_OPS,
+                 in_bytes + 8 * n)
+
+
 # --------------------------------------------------------------------------
 
 def phase_env():
@@ -179,7 +223,9 @@ def phase_k1(dev):
         dc = float((k["coeffs"] - p["coeffs"]).abs().max())
         check(bad == 0, f"K1 {label}: {bad}/{b} images' dihedral hashes "
               "differ from the plain version")
-        check(dq < 1e-6, f"K1 {label}: quality differs by {dq}")
+        check(torch.equal(k["quality"].view(torch.int32),
+                          p["quality"].view(torch.int32)),
+              f"K1 {label}: quality not bit-identical (max diff {dq})")
         check(torch.allclose(k["coeffs"], p["coeffs"], rtol=1e-4, atol=0.5),
               f"K1 {label}: coeffs differ by {dc}")
         result["max_abs_err"] = max(result["max_abs_err"], dc)
@@ -194,24 +240,29 @@ def phase_k1(dev):
                   f"K1 {label}: image {i} quality {qual[i]} vs {quality}")
         ms, plain_ms = paired_ms(lambda: pdq_cuda.pdq_hash(*args),
                                  lambda: pdq_cuda.pdq_hash_plain(*args), reps)
-        phase("k1", f"{label} B={b}: dihedral identical to plain, 16/16 "
-              f"identical to the golden; max |dquality| {dq} max |dcoeff| "
-              f"{dc}; kernel {ms:.4f} ms ({b / ms * 1e3:.0f} img/s), plain "
+        shapes = [tuple(x.shape) for x in lumas_np]
+        bnd = k1_bound(shapes, tuple(args[0].shape), args[1].shape[0])
+        phase("k1", f"{label} B={b}: dihedral and quality bit-identical to "
+              f"plain, 16/16 identical to the golden; max |dcoeff| {dc}; "
+              f"kernel {ms:.4f} ms ({b / ms * 1e3:.0f} img/s), plain "
               f"{plain_ms:.4f} ms ({b / plain_ms * 1e3:.0f} img/s), "
-              f"plain/kernel {plain_ms / ms:.2f}")
-        return ms, plain_ms
+              f"plain/kernel {plain_ms / ms:.2f}; bound {bnd['bound_ms']:.4f} "
+              f"ms ({bnd['bound_by']}), share {bnd['bound_ms'] / ms:.3f}")
+        return ms, plain_ms, bnd
 
     batches = []
     for rows, cols in ((288, 512), (240, 320)):
         lumas = textured_lumas(gen, 256, rows, cols, dev)
         batches.append(lumas)
         l_op, r_op = pdq_torch.linear_operators(rows, cols)
+        # shape_idx on the host, as the scan passes it (pdq_torch._run)
         args = (lumas, torch.from_numpy(l_op)[None].to(dev),
                 torch.from_numpy(r_op)[None].to(dev),
-                torch.zeros(256, dtype=torch.int32, device=dev), d16)
-        ms, plain_ms = compare(f"{cols}x{rows}", args, lumas.cpu().numpy(), 20)
+                torch.zeros(256, dtype=torch.int32), d16)
+        ms, plain_ms, bnd = compare(f"{cols}x{rows}", args,
+                                    lumas.cpu().numpy(), 20)
         if rows == 288:
-            result["ms"], result["plain_ms"] = ms, plain_ms
+            result.update(ms=ms, plain_ms=plain_ms, **bnd)
 
     shapes = [(288, 512), (240, 320), (512, 288), (200, 300), (333, 250),
               (64, 500), (480, 360), (97, 131)]
@@ -219,7 +270,7 @@ def phase_k1(dev):
              for k in range(256)]
     planes, l_u, r_u, idx = pdq_torch.pad_mixed(mixed)
     args = tuple(torch.from_numpy(a).to(dev)
-                 for a in (planes, l_u, r_u, idx)) + (d16,)
+                 for a in (planes, l_u, r_u)) + (torch.from_numpy(idx), d16)
     compare(f"mixed {len(shapes)} shapes padded to "
             f"{planes.shape[2]}x{planes.shape[1]}", args, mixed, 20)
     got = pdq_torch.pdq_hash_batch_mixed(mixed[:16])
@@ -325,9 +376,21 @@ def phase_hamming(dev):
               f"edge sets identical ({len(ei)} edges, {m} hot rows); K3 "
               f"{k3_ms:.3f} ms vs plain {k3_plain:.3f} ms; K4 ({m} rows) "
               f"{k4_ms:.3f} ms vs plain {k4_plain:.3f} ms")
+        k3_bnd = sweep_bound(n, var_bits.shape[0], 256,
+                             var_bits.numel() + low_d.numel() * 4)
+        # K4: each hot row against every later row, all 8 variants
+        hot_np = hot.cpu().numpy()
+        k4_bnd = bound(float((n - 1 - hot_np).sum()) * 8 * 2 * 256 / INT8_OPS,
+                       var_bits[0].numel() + q_bits.numel() + km.numel()
+                       + 4 * (low_d.numel() + 2 * m))
+        phase("k3k4", f"N={n} sim={sim}: K3 bound {k3_bnd['bound_ms']:.3f} ms "
+              f"({k3_bnd['bound_by']}), share "
+              f"{k3_bnd['bound_ms'] / k3_ms:.3f}; K4 bound "
+              f"{k4_bnd['bound_ms']:.4f} ms ({k4_bnd['bound_by']}), share "
+              f"{k4_bnd['bound_ms'] / k4_ms:.3f}")
         if sim == 40:
-            res["k3"].update(ms=k3_ms, plain_ms=k3_plain)
-            res["k4"].update(ms=k4_ms, plain_ms=k4_plain)
+            res["k3"].update(ms=k3_ms, plain_ms=k3_plain, **k3_bnd)
+            res["k4"].update(ms=k4_ms, plain_ms=k4_plain, **k4_bnd)
 
     small = planted_hashes(4096, 200, SEED + 1)
     for sim in (31, 40):
@@ -396,8 +459,17 @@ def phase_k2(dev, batches):
               f"|dcoeff| {dc}; kernel {ms:.4f} ms ({b / ms * 1e3:.0f} img/s), "
               f"plain {plain_ms:.4f} ms, plain/kernel {plain_ms / ms:.2f}; "
               f"with the dihedral epilogue {hyb_ms:.4f} ms")
+        # stage 1 on the bf16 tensor cores (three split terms of L),
+        # stage 2 and the D16 products in fp32 FMA; the dihedral epilogue
+        # is PyTorch's, outside the kernel
+        bnd = bound(b * 2 * 3 * 64 * rows * cols / BF16_FLOPS
+                    + b * 2 * (64 * 64 * cols + 16 * 64 * 64 + 16 * 16 * 64)
+                    / FP32_FLOPS,
+                    lumas.numel() + 4 * 64 * (rows + cols) + b * 4 * 257)
+        phase("k2", f"{label}: bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}), share {bnd['bound_ms'] / ms:.3f}")
         if rows == 288:
-            result["ms"], result["plain_ms"] = ms, plain_ms
+            result.update(ms=ms, plain_ms=plain_ms, **bnd)
     return result
 
 
@@ -431,8 +503,73 @@ def phase_k6(inputs):
               f"K3 {k3_ms:.3f} ms vs plain {plain_ms:.3f} ms; K3/K6 "
               f"{k3_ms / ms:.2f}")
         if sim == 40:
-            result.update(ms=ms, plain_ms=plain_ms, k3_ms=k3_ms)
+            result.update(ms=ms, plain_ms=plain_ms, k3_ms=k3_ms,
+                          **sweep_bound(n, pm1.shape[0], 256,
+                                        pm1.numel() + 4 * low_d.numel()))
     return result
+
+
+def host_oracle_rows(rows, var, base, low, sim):
+    """{(i, j)}: for each sampled row i, every j > i within the
+    threshold, by XOR + popcount of 64-bit words in numpy."""
+    import numpy as np
+
+    b64 = np.ascontiguousarray(base).view(np.uint64)            # (N, 4)
+    edges = set()
+    for i in rows:
+        q = np.ascontiguousarray(var[i]).view(np.uint64)        # (V, 4)
+        d = np.full(len(base) - i - 1, 1 << 10, dtype=np.int64)
+        for qv in q:
+            x = b64[i + 1:] ^ qv[None]
+            d = np.minimum(d, popcount(x).sum(1, dtype=np.int64))
+        thr = np.where(low[i] | low[i + 1:], 0, sim)
+        edges.update((int(i), int(j)) for j in np.nonzero(d <= thr)[0] + i + 1)
+    return edges
+
+
+def phase_k3_1m(dev, n=1_000_000):
+    """K3 against K6 at N=1,000,000 x 8 variants, sim 40 (no plain run
+    at this size), and find_edges_fast's edges against a host oracle on
+    a sample of rows."""
+    import numpy as np
+    import torch
+
+    from rupphash_tpu_torch.ops import hamming, hamming_cuda
+
+    sim = 40
+    t0 = time.perf_counter()
+    base, var, low = planted_hashes(n, n // 50, SEED + 3)
+    var_bits, low_d, _, npad = hamming_cuda.prepare_inputs_device(base, var,
+                                                                  low)
+    k3 = hamming_cuda.scan_row_counts(var_bits, low_d, sim=sim, n_total=n)
+    pm1 = hamming.unpack_bits_pm1(var_bits).contiguous()
+    k6 = hamming_cuda.scan_row_counts_pm1(pm1, low_d, sim=sim, n_total=n)
+    torch.cuda.synchronize()
+    check(torch.equal(k3, k6), "K3 at N=1M: counts differ from K6's")
+    k3_ms = cuda_ms(lambda: hamming_cuda.scan_row_counts(
+        var_bits, low_d, sim=sim, n_total=n), 2)
+    k6_ms = cuda_ms(lambda: hamming_cuda.scan_row_counts_pm1(
+        pm1, low_d, sim=sim, n_total=n), 1)
+    del pm1
+    bnd = sweep_bound(n, 8, 256, var_bits.numel() + 4 * low_d.numel())
+    ei, ej = hamming.find_edges_fast(base, var, low, similarity=sim)
+    check(len(ei) == int(k3.sum()), "N=1M: edges vs K3 counts")
+    rng = np.random.default_rng(SEED)
+    sample = sorted(set(ei[rng.integers(0, len(ei), 24)].tolist())
+                    | set(rng.integers(0, n - 1, 24).tolist()))
+    want = host_oracle_rows(sample, var, base, low, sim)
+    picked = np.isin(ei, sample)
+    got = set(zip(ei[picked].tolist(), ej[picked].tolist()))
+    check(got == want, f"N=1M: edges of {len(sample)} sampled rows differ "
+          f"from the host oracle ({len(got)} vs {len(want)})")
+    phase("k3-1m", f"N={n} V=8 sim={sim}: K3 counts identical to K6 "
+          f"({int(k3.sum())} matches); K3 {k3_ms:.3f} ms vs K6 {k6_ms:.3f} ms; "
+          f"K3 bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), share "
+          f"{bnd['bound_ms'] / k3_ms:.3f}; find_edges_fast {len(ei)} edges, "
+          f"{len(sample)} sampled rows ({len(want)} edges) equal to the host "
+          f"oracle; phase {time.perf_counter() - t0:.1f} s")
+    return {"k3_1m_ms": k3_ms, "k6_1m_ms": k6_ms,
+            "k3_1m_bound_ms": bnd["bound_ms"]}
 
 
 def phase_k5(dev):
@@ -453,10 +590,20 @@ def phase_k5(dev):
               f"K5 W={width}: differs from the plain version")
         ms, plain_ms = paired_ms(lambda: restack.restack(x, width),
                                  lambda: restack.restack_plain(x, width), 200)
+
+        def library():   # one PyTorch copy computes the same restack
+            return x[0].view(64, 8, width).permute(1, 0, 2).contiguous() \
+                .view(8 * 64, width)
+
+        check(torch.equal(library(), want), f"K5 W={width}: the library "
+              "call differs")
+        lib_ms = cuda_ms(library, 200)
+        bnd = bound(0.0, 2 * x.numel() * 4)
         phase("k5", f"W={width}: bit-identical to plain; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+              f"plain {plain_ms:.4f} ms, permute+contiguous {lib_ms:.4f} ms, "
+              f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']})")
         if width == 288:
-            result.update(ms=ms, plain_ms=plain_ms)
+            result.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
     return result
 
 
@@ -1169,6 +1316,9 @@ def main() -> int:
     hm, inputs = phase_hamming(dev)
     k6 = phase_k6(inputs)
     del batches, inputs
+    torch.cuda.empty_cache()
+    hm["k3"].update(phase_k3_1m(dev))
+    torch.cuda.empty_cache()
     k5 = phase_k5(dev)
     phase_demosaic(dev)
     launches = phase_e2e()
@@ -1201,6 +1351,8 @@ def main() -> int:
          "replaces": "_prof_nz.py:78",
          "launches": launches["hamming_rowcount_mma_kernel"], **k6},
     ]
+    for k in kernels:
+        with_share(k)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,33 +1,234 @@
 """Command-line frontend of the port: scan, group and print; serve.
 
-The flags, the parser and the output formats are rupphash_tpu's own
-(rupphash_tpu/cli.py imports no jax, so its parser and printers are
-reused).  The port runs the duplicate-scan route: scan + group + print
-(or --rehash-only, or the interactive --delete prompt), the
-near-duplicate service (--serve, serve.py) and the cache management
-flags (--prune, --show-ignored, --unignore).  The view, TUI and GUI
-routes are not ported yet and exit with status 2 and a message naming
-the flag.
+The flags (plus `--device`), the parser and the output formats are the
+JAX package's (rupphash_tpu/cli.py:28-268, copied here with
+`build_parser`, `print_groups`, `run_interactive_delete`,
+`show_exif_tags` and `_open_store`).  The port runs the duplicate-scan
+route: scan + group + print (or --rehash-only, or the interactive
+--delete prompt), the near-duplicate service (--serve, serve.py) and
+the cache management flags (--prune, --show-ignored, --unignore).  The
+scan, the service and --show-build-info run on the card and exit 3
+without one, unless `--device cpu` asks for the plain versions on the
+CPU.  The view, TUI and GUI routes are not ported yet and exit with
+status 2 and a message naming the flag.
 """
 
 from __future__ import annotations
 
+import argparse
 import datetime
 import sys
+import time
 from pathlib import Path
 
-from rupphash_tpu import cli as ref_cli
+GREEN = "\x1b[32m"
+RESET = "\x1b[0m"
+
+SORT_ORDERS = ["name", "name-desc", "name-natural", "name-natural-desc",
+               "date", "date-desc", "size", "size-desc", "random",
+               "exif-date", "exif-date-desc", "location"]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from . import __version__
+    p = argparse.ArgumentParser(
+        prog="rupphash_tpu_torch",
+        description="Finds visually similar images (PyTorch/CUDA port).")
+    p.add_argument("--version", action="version",
+                   version=f"rupphash_tpu_torch {__version__}")
+    p.add_argument("paths", nargs="*", help="files or directories to scan")
+    p.add_argument("--rehash", action="store_true",
+                   help="recompute hashes even when cached")
+    p.add_argument("--rehash-only", action="store_true",
+                   help="recompute hashes and exit without grouping")
+    p.add_argument("--similarity", type=int, default=None,
+                   help="similarity threshold (default: 40, max 63)")
+    p.add_argument("--pixel-hash", action="store_true",
+                   help="hash decoded pixels to find content-identical "
+                        "files (e.g. PNG vs JPG)")
+    p.add_argument("--sort", default="name", choices=SORT_ORDERS)
+    p.add_argument("--use-tui", action="store_true")
+    p.add_argument("--use-gui", action="store_true",
+                   help="web GUI viewer (serves a local single-page app "
+                        "on 127.0.0.1; the reference's egui/wgpu desktop "
+                        "shell redesigned for headless TPU hosts)")
+    p.add_argument("--delete", action="store_true",
+                   help="interactive delete prompt per group")
+    p.add_argument("--relative-times", action="store_true")
+    p.add_argument("--use-trash", action="store_true")
+    p.add_argument("--view", action="store_true",
+                   help="browse without similarity checking "
+                        "(TUI, or web viewer with --use-gui)")
+    p.add_argument("--view-flatten", action="store_true")
+    p.add_argument("--shuffle", action="store_true")
+    p.add_argument("--slideshow", metavar="SECONDS", type=float,
+                   default=None,
+                   help="slideshow interval (implies --view; with "
+                        "--use-gui the web viewer advances, T toggles)")
+    p.add_argument("--3dlut", dest="luts3d", metavar="FILE", nargs="+",
+                   default=None,
+                   help="3D LUT .cube files, cycled with L in the GUI "
+                        "(tetrahedral interpolation)")
+    p.add_argument("--move-marked", metavar="DIR", type=Path, default=None)
+    p.add_argument("--raw-thumbnails", action="store_true",
+                   help="use embedded thumbnails from RAW files")
+    p.add_argument("--show-exif-tags", action="store_true")
+    p.add_argument("--prune", metavar="SECONDS", type=int, default=None)
+    p.add_argument("--show-build-info", action="store_true")
+    p.add_argument("--show-ignored", action="store_true")
+    p.add_argument("--unignore", metavar="VALUE", nargs="+", default=None)
+    p.add_argument("--no-cache", action="store_true",
+                   help="skip the encrypted cache entirely")
+    p.add_argument("--serve", action="store_true",
+                   help="near-duplicate lookup service: index the given "
+                        "paths, answer POST /v1/query with image bytes")
+    p.add_argument("--port", type=int, default=0,
+                   help="port for --serve / --use-gui (0 = ephemeral)")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="bind address for --serve / --use-gui "
+                        "(default loopback; 0.0.0.0 exposes the "
+                        "delete/move API to the network — be sure)")
+    p.add_argument("--allow-host", metavar="NAME", action="append",
+                   default=None,
+                   help="accept this Host header name on the --serve "
+                        "API (repeatable; IP literals and localhost "
+                        "are always accepted — other names are "
+                        "rejected as DNS-rebinding)")
+    p.add_argument("--index-file", metavar="FILE", default=None,
+                   help="load/save the --serve hash index (.npz)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda (default) runs the kernels on the card and "
+                        "fails without one; cpu runs their plain versions")
+    return p
+
+
+def format_size(n: int) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if n < 1024 or unit == "TiB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{n} B"
+        n /= 1024.0
+    return f"{n} B"
+
+
+def relative_time(ts: float) -> str:
+    delta = time.time() - ts
+    for div, name in ((60, "second"), (60, "minute"), (24, "hour"),
+                      (30.44, "day"), (12, "month"), (float("inf"), "year")):
+        if delta < div:
+            v = int(delta)
+            return f"{v} {name}{'s' if v != 1 else ''} ago"
+        delta /= div
+    return "long ago"
+
+
+def _time_str(rec, relative: bool) -> str:
+    if relative:
+        return relative_time(rec.modified)
+    return datetime.datetime.fromtimestamp(rec.modified).strftime(
+        "%Y-%m-%d %H:%M:%S")
+
+
+def _bit_identical_counts(group):
+    counts = {}
+    for f in group:
+        counts[f.content_hash] = counts.get(f.content_hash, 0) + 1
+    return counts
+
+
+def _print_group_header(i, info, n_groups=None):
+    if info.status == "all-identical":
+        print(f"\n--- Group {i + 1} - {GREEN}Bit-identical{RESET} ---")
+    elif info.status == "some-identical":
+        print(f"\n--- Group {i + 1} - {GREEN}Some files Bit-identical{RESET} ---")
+    else:
+        print(f"\n--- Group {i + 1} (Max Dist: {info.max_dist}) ---")
+
+
+def print_groups(groups, infos, relative_times=False):
+    for i, group in enumerate(groups):
+        _print_group_header(i, infos[i])
+        counts = _bit_identical_counts(group)
+        for f in group:
+            res = (f"{f.resolution[0]}x{f.resolution[1]}"
+                   if f.resolution else "?")
+            ident = counts.get(f.content_hash, 0) > 1
+            cs, ce, marker = (GREEN, RESET, "*") if ident else ("", "", " ")
+            print(f"  {cs}[{marker}] {_time_str(f, relative_times)} | "
+                  f"{format_size(f.size)} | {res} | {f.path}{ce}")
+
+
+def run_interactive_delete(groups, infos, relative_times, use_trash):
+    from .utils import fileops
+
+    for g_idx, group in enumerate(groups):
+        if len(group) < 2:
+            continue
+        info = infos[g_idx]
+        print("\n" + "=" * 56)
+        if info.status == "all-identical":
+            print(f"Group {g_idx + 1} - {GREEN}Bit-identical{RESET}")
+        elif info.status == "some-identical":
+            print(f"Group {g_idx + 1} - {GREEN}Some files Bit-identical{RESET}")
+        else:
+            print(f"Group {g_idx + 1}/{len(groups)} "
+                  f"(Max Dist: {info.max_dist})")
+        print("=" * 56)
+        counts = _bit_identical_counts(group)
+        for i, f in enumerate(group):
+            res = (f"{f.resolution[0]}x{f.resolution[1]}"
+                   if f.resolution else "???x???")
+            ident = counts.get(f.content_hash, 0) > 1
+            cs, ce, marker = (GREEN, RESET, "*") if ident else ("", "", " ")
+            print(f"{cs}[{i + 1}] {marker} {_time_str(f, relative_times)} | "
+                  f"{format_size(f.size)} | {res} | {f.path}{ce}")
+        verb = "TRASH" if use_trash else "PERMANENTLY delete"
+        try:
+            line = input(f"\nEnter numbers to {verb} (e.g. '1 3'), "
+                         f"or ENTER to skip: ").strip()
+        except EOFError:
+            return
+        if not line:
+            continue
+        for tok in line.split():
+            try:
+                idx = int(tok) - 1
+            except ValueError:
+                continue
+            if 0 <= idx < len(group):
+                try:
+                    fileops.delete_file(group[idx].path, use_trash)
+                    print(f"  removed {group[idx].path}")
+                except OSError as e:
+                    print(f"  FAILED {group[idx].path}: {e}")
+
+
+def show_exif_tags():
+    from PIL import ExifTags
+
+    names = sorted(set(ExifTags.TAGS.values()))
+    derived = ["Country", "Subdivision", "SunAzimuth", "SunAltitude",
+               "Timezone", "Timestamp", "PdqQuality"]
+    print("Supported EXIF tag names (for exif_tags configuration):")
+    for n in names:
+        print(f"  {n}")
+    print("Derived tags:")
+    for n in derived:
+        print(f"  {n}")
+
+
+def _open_store(args):
+    if args.no_cache:
+        return None
+    from .cache import config as cfgmod
+    from .cache.store import CacheStore
+    cfg = cfgmod.load_config()
+    return CacheStore(cfgmod.cache_dir() / "cache.db",
+                      cfg["_master_key_bytes"])
+
 
 _NOT_PORTED = (("view", "--view"), ("view_flatten", "--view-flatten"),
                ("shuffle", "--shuffle"), ("slideshow", "--slideshow"),
                ("use_gui", "--use-gui"), ("use_tui", "--use-tui"))
-
-
-def build_parser():
-    p = ref_cli.build_parser()
-    p.prog = "rupphash_tpu_torch"
-    p.description = "Finds visually similar images (PyTorch/CUDA port)."
-    return p
 
 
 def show_build_info():
@@ -62,13 +263,27 @@ def show_build_info():
     print(json.dumps(info, indent=2))
 
 
+def pin_device(args) -> bool:
+    """Fix the process's device from --device; False (after naming the
+    missing card on stderr) when the card was asked for and none is
+    visible."""
+    from . import device
+
+    try:
+        device.pin(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return False
+    return True
+
+
 def cache_command(args) -> int | None:
     """--prune, --show-ignored and --unignore: the reference's cache
     management routes (rupphash_tpu/cli.py:296-342), which touch only
     the cache.  None when none of them was asked for."""
     if args.prune is None and not args.show_ignored and not args.unignore:
         return None
-    store = ref_cli._open_store(args)
+    store = _open_store(args)
     if store is None:
         if args.prune is not None:
             print("--prune requires the cache", file=sys.stderr)
@@ -97,7 +312,7 @@ def cache_command(args) -> int | None:
                 elif raw is not None and len(raw) == 32:
                     total += store.unignore(pdqhash=raw)
                 elif Path(val).exists():
-                    from rupphash_tpu.utils import hashes as H
+                    from .utils import hashes as H
                     ch = H.content_hash(store.content_key,
                                         Path(val).read_bytes())
                     total += store.unignore(content_hash=ch)
@@ -111,10 +326,12 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     if args.show_build_info:
+        if not pin_device(args):
+            return 3
         show_build_info()
         return 0
     if args.show_exif_tags:
-        ref_cli.show_exif_tags()
+        show_exif_tags()
         return 0
     for attr, flag in _NOT_PORTED:
         if getattr(args, attr) not in (None, False):
@@ -132,6 +349,8 @@ def main(argv=None) -> int:
     if not args.paths:
         print("error: paths required", file=sys.stderr)
         return 2
+    if not pin_device(args):
+        return 3
     if args.serve:
         from . import serve
         return serve.run_serve(args)
@@ -142,7 +361,7 @@ def main(argv=None) -> int:
                              pixel_hash=args.pixel_hash,
                              rehash=args.rehash or args.rehash_only,
                              sort=args.sort)
-    store = ref_cli._open_store(args)
+    store = _open_store(args)
 
     def progress(done, total):
         if done % 100 == 0 or done == total:
@@ -169,13 +388,13 @@ def main(argv=None) -> int:
                  for g in groups])
 
         if args.delete:
-            ref_cli.run_interactive_delete(groups, infos, args.relative_times,
-                                           args.use_trash)
+            run_interactive_delete(groups, infos, args.relative_times,
+                                   args.use_trash)
         elif args.move_marked:
             print("--move-marked applies to files marked in the TUI; "
                   "use --use-tui or --use-gui.", file=sys.stderr)
         else:
-            ref_cli.print_groups(groups, infos, args.relative_times)
+            print_groups(groups, infos, args.relative_times)
         return 0
     finally:
         if store is not None:

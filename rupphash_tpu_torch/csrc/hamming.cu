@@ -8,36 +8,358 @@
 //   keep = d <= (low(i) | low(j) ? 0 : sim)
 //          and j > i and j < n_total and i < n_total
 //
-// The base side is variant slot 0 only.  The TPU kernels computed the
-// same test as a +/-1 int8 matmul (dot = nbits - 2d, threshold
-// dot >= nbits - 2 sim); here the hashes stay packed, NW u32 words per
-// hash: 8 for 256-bit PDQ, 2 for 64-bit pHash.  The (V, Npad, nbytes)
-// u8 tensor of the public functions is read in place as
-// (V, Npad, NW) u32.
+// The base side is variant slot 0 only.  Hashes arrive packed, as the
+// (V, Npad, nbytes) u8 tensor the JAX package shipped to the device
+// before unpacking it: 32 bytes per 256-bit PDQ hash, 8 per 64-bit
+// pHash.
 //
-// What bounds it on this card: each pair costs V x NW XOR + popcount,
-// and the SM issues popcount at a quarter of its integer rate, so the
-// sweep is bounded by integer issue, not by memory: a 1024-row base
-// tile is at most 32 KB of shared memory and serves 128 query rows.
-// K6 (hamming_mma.cu) is the int8 tensor-core form of the same count.
+// K3 computes the test as the TPU did, as +/-1 int8 dots on tensor
+// cores: dot = nbits - 2 d, keep when max over v of dot >= nbits - 2 sim
+// (>= nbits when either row is low-confidence).  Dots of +/-1 vectors
+// are exact in int32, so the counts are exact.
 //
-// K3 layout: block (bj, qi) = 128 query rows (one per thread, its V
-// variants in registers) x 1024 base rows (staged in shared memory).
-// Tiles wholly at or below the diagonal exit at once.  Row counts are
-// summed over base tiles with integer atomicAdd, exact in any order.
+// What bounds K3 on this card: 2 * nbits int8 operations per pair and
+// variant, 2.05e13 at N=100k, V=8, i.e. 10.3 ms at the 1,979 TOP/s int8
+// peak; the packed input is 25.6 MB.  The peak is reached only through
+// wgmma, so the design is a wgmma GEMM with the max, the threshold and
+// the row count fused into its epilogue:
+//
+//   * work item = 64 query rows x a run of up to 64 base tiles of 128
+//     rows, all on or above the diagonal (the host builds the list,
+//     ops/hamming_cuda.py::sweep_items); persistent blocks, one per SM,
+//     take items from a global counter;
+//   * the item's query tile, all V variants, is expanded from packed
+//     bits to +/-1 int8 once into shared memory (V x 16 KB) and stays
+//     there for the whole run of base tiles;
+//   * two consumer warpgroups take every other base tile; each expands
+//     its tile's packed rows (prefetched into registers during the
+//     previous tile's MMAs) into its own 32 KB buffer, so device memory
+//     is read packed and one warpgroup's staging and epilogue overlap
+//     the other's MMAs;
+//   * per variant, 8 (PDQ) or 2 (pHash) wgmma.m64n128k32.s32.s8.s8 from
+//     shared memory into one of two register accumulators, so variant
+//     v + 1 runs on the tensor cores while the max folds variant v;
+//   * epilogue in registers: threshold, j > i mask, row counts summed
+//     over the item, one shared then one global integer atomicAdd per
+//     row per item.
+//
+// Shared layout of every +/-1 tile: 128-byte rows (one 128B swizzle
+// span, 128 k values), 16-byte chunk c of row r at
+// r * 128 + ((c ^ (r & 7)) << 4), 1024-byte aligned; a 256-bit hash
+// fills two such panels.  The k order inside a row is free as long as
+// query and base use the same one: chunk c holds bits [16c, 16c + 16).
 //
 // K4 layout: each thread owns one output byte, i.e. 8 base rows held in
 // registers; a block stages 32 hot query rows in shared memory and
 // writes their bytes row by row, so neighbouring threads store
-// neighbouring bytes.
+// neighbouring bytes.  XOR + popcount on packed u32 words.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRowThreads = 128;    // K3: query rows per block
-constexpr int kBaseTile = 1024;     // K3: base rows per block (npad % kBaseTile == 0)
+// ----------------------------------------------------------------------------
+// K3
+// ----------------------------------------------------------------------------
+
+constexpr int kQRows = 64;                  // query rows per item (wgmma M)
+constexpr int kBRows = 128;                 // base rows per tile (wgmma N)
+constexpr int kGroups = 2;                  // consumer warpgroups
+constexpr int kSweepThreads = 128 * kGroups;
+constexpr int kPanelQ = kQRows * 128;       // bytes of one query panel
+constexpr int kPanelB = kBRows * 128;       // bytes of one base panel
+
+template <int NB>  // packed bytes per hash: 32 or 8
+struct SweepShape {
+  static constexpr int kPanels = NB == 32 ? 2 : 1;     // 128-byte panels per row
+  static constexpr int kSteps = NB * 8 / 32;           // k32 wgmma steps
+  static constexpr int kChunks = NB / 2;               // 16-byte +/-1 chunks per row
+};
+
+template <int NV, int NB>
+constexpr int sweep_smem_bytes() {
+  return 1024 /* alignment slack */ + NV * SweepShape<NB>::kPanels * kPanelQ +
+         kGroups * SweepShape<NB>::kPanels * kPanelB +
+         4 * (kQRows + kGroups * kBRows + kQRows) + 16;
+}
+
+// 4 packed bits -> 4 bytes of +1 (bit set) / -1 (bit clear).
+__device__ __forceinline__ uint32_t spread4(uint32_t nib) {
+  const uint32_t x = (nib * 0x00204081u) & 0x01010101u;
+  return 0xFFFFFFFFu ^ (x * 0xFEu);
+}
+
+// Chunk c (bits [16c, 16c + 16)) of a packed row as 16 +/-1 bytes.
+__device__ __forceinline__ uint4 expand16(uint32_t half) {
+  return make_uint4(spread4(half & 0xFu), spread4((half >> 4) & 0xFu),
+                    spread4((half >> 8) & 0xFu), spread4((half >> 12) & 0xFu));
+}
+
+template <int NB>
+struct PackedRow {
+  uint32_t w[NB / 4];
+};
+
+template <int NB>
+__device__ __forceinline__ PackedRow<NB> load_row(const uint8_t* p) {
+  PackedRow<NB> r;
+  if constexpr (NB == 32) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+    r.w[0] = a.x; r.w[1] = a.y; r.w[2] = a.z; r.w[3] = a.w;
+    r.w[4] = b.x; r.w[5] = b.y; r.w[6] = b.z; r.w[7] = b.w;
+  } else {
+    const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+    r.w[0] = a.x; r.w[1] = a.y;
+  }
+  return r;
+}
+
+// Write one packed row as +/-1 int8 into a swizzled tile of `rows` rows.
+template <int NB>
+__device__ __forceinline__ void store_row(uint8_t* tile, int rows, int r,
+                                          const PackedRow<NB>& row) {
+#pragma unroll
+  for (int c = 0; c < SweepShape<NB>::kChunks; ++c) {
+    const uint32_t half = (row.w[c >> 1] >> (16 * (c & 1))) & 0xFFFFu;
+    const int panel = c >> 3, cc = c & 7;
+    *reinterpret_cast<uint4*>(tile + panel * rows * 128 + r * 128 + ((cc ^ (r & 7)) << 4)) =
+        expand16(half);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor: K-major, 128B swizzle, 8-row groups
+// 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_regs(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 32 s8, smem) . B (128 x 32 s8, smem)^T, s32 accumulate.
+__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
+        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),
+        "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// All k steps of one variant against the warpgroup's base tile.
+template <int NB>
+__device__ __forceinline__ void mma_variant(int (&d)[64], uint32_t q_addr,
+                                              uint32_t b_addr) {
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < SweepShape<NB>::kSteps; ++s) {
+    const uint32_t off = (s & 3) * 32;
+    wgmma_m64n128k32(d, sw128_desc(q_addr + (s >> 2) * kPanelQ + off),
+                     sw128_desc(b_addr + (s >> 2) * kPanelB + off), s > 0);
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ void fold_max(int (&best)[64], int (&d)[64], bool first) {
+  fence_regs(d);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) best[i] = first ? d[i] : max(best[i], d[i]);
+}
+
+__device__ __forceinline__ void bar_sync_group(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "n"(128) : "memory");
+}
+
+template <int NV, int NB>
+__global__ void __launch_bounds__(kSweepThreads, 1)
+hamming_rowcount_kernel(const uint8_t* __restrict__ packed,  // (NV, npad, NB)
+                        const int32_t* __restrict__ low,     // (npad,)
+                        const int4* __restrict__ items,      // (n_items,) {q0, b_begin, b_end, 0}
+                        int n_items, int* __restrict__ next_item,
+                        int npad, int n_total, int sim,
+                        int32_t* __restrict__ counts) {      // (npad,), zeroed
+  using S = SweepShape<NB>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* s_q = smem;                                         // NV x kPanels x kPanelQ
+  uint8_t* s_b = s_q + NV * S::kPanels * kPanelQ;              // kGroups x kPanels x kPanelB
+  int32_t* s_qlow = reinterpret_cast<int32_t*>(s_b + kGroups * S::kPanels * kPanelB);
+  int32_t* s_blow = s_qlow + kQRows;                           // kGroups x kBRows
+  int32_t* s_count = s_blow + kGroups * kBRows;                // kQRows
+  int* s_item = s_count + kQRows;
+
+  const int tid = threadIdx.x;
+  const int group = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;  // accumulator rows of this thread
+  const int cq = 2 * (lane & 3);                        // column of d[4i] within n8 block i
+  uint8_t* my_b = s_b + group * S::kPanels * kPanelB;
+  int32_t* my_blow = s_blow + group * kBRows;
+  const int nbits = NB * 8;
+  const int need_ok = nbits - 2 * sim;
+
+  for (;;) {
+    __syncthreads();   // the previous item is finished everywhere
+    if (tid == 0) *s_item = atomicAdd(next_item, 1);
+    __syncthreads();
+    const int it = *s_item;
+    if (it >= n_items) break;
+    const int4 item = items[it];
+    const int q0 = item.x, b_begin = item.y, b_end = item.z;
+
+    // Query tile: all NV variants of rows q0 .. q0 + 63, once per item.
+    for (int e = tid; e < NV * kQRows; e += kSweepThreads) {
+      const int v = e / kQRows, r = e % kQRows;
+      const PackedRow<NB> row =
+          load_row<NB>(packed + (static_cast<size_t>(v) * npad + q0 + r) * NB);
+      store_row<NB>(s_q + v * S::kPanels * kPanelQ, kQRows, r, row);
+    }
+    if (tid < kQRows) {
+      s_qlow[tid] = low[q0 + tid];
+      s_count[tid] = 0;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    const int i0 = q0 + r0, i1 = q0 + r1;
+    const int ql0 = s_qlow[r0], ql1 = s_qlow[r1];
+    int cnt0 = 0, cnt1 = 0;
+    const uint32_t q_addr = smem_addr(s_q), b_addr = smem_addr(my_b);
+
+    int b0 = b_begin + group * kBRows;
+    PackedRow<NB> next{};
+    int next_low = 1;
+    if (b0 < b_end) {
+      next = load_row<NB>(packed + static_cast<size_t>(b0 + t) * NB);
+      next_low = low[b0 + t];
+    }
+    for (; b0 < b_end; b0 += kGroups * kBRows) {
+      bar_sync_group(group);   // this group's previous tile is consumed
+      store_row<NB>(my_b, kBRows, t, next);
+      my_blow[t] = next_low;
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_sync_group(group);
+
+      // prefetch the group's next base tile while the tensor cores run
+      const int bn = b0 + kGroups * kBRows;
+      if (bn < b_end) {
+        next = load_row<NB>(packed + static_cast<size_t>(bn + t) * NB);
+        next_low = low[bn + t];
+      }
+
+      int best[64];
+      int acc0[64], acc1[64];
+      mma_variant<NB>(acc0, q_addr, b_addr);
+      if constexpr (NV == 1) {
+        wgmma_wait<0>();
+        fold_max(best, acc0, true);
+      } else {
+#pragma unroll
+        for (int v = 1; v < NV; ++v) {
+          const uint32_t qv = q_addr + v * S::kPanels * kPanelQ;
+          if (v & 1) {
+            mma_variant<NB>(acc1, qv, b_addr);
+            wgmma_wait<1>();
+            fold_max(best, acc0, v == 1);
+          } else {
+            mma_variant<NB>(acc0, qv, b_addr);
+            wgmma_wait<1>();
+            fold_max(best, acc1, false);
+          }
+        }
+        wgmma_wait<0>();
+        if ((NV - 1) & 1) {
+          fold_max(best, acc1, false);
+        } else {
+          fold_max(best, acc0, false);
+        }
+      }
+
+      // best[4i + e]: row r0, column 8i + cq + e; best[4i + 2 + e]: row r1.
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jj = 8 * i + cq + e;
+          const int j = b0 + jj;
+          const int bl = my_blow[jj];
+          const bool jin = j < n_total;
+          cnt0 += (best[4 * i + e] >= ((ql0 | bl) ? nbits : need_ok)) & (j > i0) & jin;
+          cnt1 += (best[4 * i + 2 + e] >= ((ql1 | bl) ? nbits : need_ok)) & (j > i1) & jin;
+        }
+      }
+    }
+    cnt0 += __shfl_xor_sync(0xffffffffu, cnt0, 1);
+    cnt0 += __shfl_xor_sync(0xffffffffu, cnt0, 2);
+    cnt1 += __shfl_xor_sync(0xffffffffu, cnt1, 1);
+    cnt1 += __shfl_xor_sync(0xffffffffu, cnt1, 2);
+    if ((lane & 3) == 0) {
+      if (cnt0) atomicAdd(s_count + r0, cnt0);
+      if (cnt1) atomicAdd(s_count + r1, cnt1);
+    }
+    __syncthreads();
+    if (tid < kQRows && s_count[tid]) atomicAdd(counts + q0 + tid, s_count[tid]);
+  }
+}
+
+template <int NV, int NB>
+int launch_rowcount(int grid, cudaStream_t st, const void* packed, const void* low,
+                    const void* items, int n_items, void* next_item, int npad, int n_total,
+                    int sim, void* counts) {
+  constexpr int smem = sweep_smem_bytes<NV, NB>();
+  auto kernel = hamming_rowcount_kernel<NV, NB>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, kSweepThreads, smem, st>>>(
+      static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(low),
+      static_cast<const int4*>(items), n_items, static_cast<int*>(next_item), npad, n_total,
+      sim, static_cast<int32_t*>(counts));
+  return 0;
+}
+
+// ----------------------------------------------------------------------------
+// K4
+// ----------------------------------------------------------------------------
+
 constexpr int kExtractThreads = 128;
 constexpr int kExtractQueries = 32;
 
@@ -77,45 +399,6 @@ __device__ __forceinline__ int hamming(const Hash<NW>& a, const Hash<NW>& b) {
 #pragma unroll
   for (int k = 0; k < NW; ++k) d += __popc(a.w[k] ^ b.w[k]);
   return d;
-}
-
-template <int NV, int NW>
-__global__ void __launch_bounds__(kRowThreads)
-hamming_rowcount_kernel(const uint32_t* __restrict__ words,  // (NV, npad, NW)
-                        const int32_t* __restrict__ low,     // (npad,)
-                        int npad, int n_total, int sim,
-                        int32_t* __restrict__ counts) {      // (npad,), zeroed
-  const int q0 = blockIdx.y * kRowThreads;
-  const int b0 = blockIdx.x * kBaseTile;
-  if (b0 + kBaseTile - 1 <= q0 || b0 >= n_total || q0 >= n_total) return;
-
-  __shared__ __align__(16) uint32_t s_base[kBaseTile * NW];
-  __shared__ int32_t s_low[kBaseTile];
-  const uint2* src = reinterpret_cast<const uint2*>(words + static_cast<size_t>(b0) * NW);
-  uint2* dst = reinterpret_cast<uint2*>(s_base);
-  for (int e = threadIdx.x; e < kBaseTile * NW / 2; e += kRowThreads) dst[e] = src[e];
-  for (int e = threadIdx.x; e < kBaseTile; e += kRowThreads) s_low[e] = low[b0 + e];
-  __syncthreads();
-
-  const int i = q0 + threadIdx.x;
-  if (i >= n_total) return;
-  Hash<NW> q[NV];
-#pragma unroll
-  for (int v = 0; v < NV; ++v)
-    q[v] = load_hash<NW>(words + (static_cast<size_t>(v) * npad + i) * NW);
-  const int qlow = low[i];
-  const int jlo = max(b0, i + 1) - b0;
-  const int jhi = min(b0 + kBaseTile, n_total) - b0;
-  int cnt = 0;
-  for (int jj = jlo; jj < jhi; ++jj) {
-    const Hash<NW> b = load_hash<NW>(s_base + jj * NW);
-    int dmin = 32 * NW;
-#pragma unroll
-    for (int v = 0; v < NV; ++v) dmin = min(dmin, hamming<NW>(q[v], b));
-    const int thr = (qlow | s_low[jj]) ? 0 : sim;
-    cnt += dmin <= thr;
-  }
-  if (cnt) atomicAdd(counts + i, cnt);
 }
 
 template <int NV, int NW>
@@ -178,14 +461,6 @@ hamming_extract_kernel(const uint32_t* __restrict__ qwords,  // (NV, mq, NW)
 }
 
 template <int NV, int NW>
-void launch_rowcount(dim3 grid, cudaStream_t st, const void* words, const void* low, int npad,
-                     int n_total, int sim, void* counts) {
-  hamming_rowcount_kernel<NV, NW><<<grid, kRowThreads, 0, st>>>(
-      static_cast<const uint32_t*>(words), static_cast<const int32_t*>(low), npad, n_total, sim,
-      static_cast<int32_t*>(counts));
-}
-
-template <int NV, int NW>
 void launch_extract(dim3 grid, cudaStream_t st, const void* qwords, const void* bwords,
                     const void* qlow, const void* blow, const void* qidx, int mq, int npad,
                     int n_total, int sim, void* out) {
@@ -197,22 +472,28 @@ void launch_extract(dim3 grid, cudaStream_t st, const void* qwords, const void* 
 
 }  // namespace
 
-// nbytes: 32 (PDQ, 8 words) or 8 (pHash, 2 words); nv: 1 or 8.
-extern "C" int rupp_hamming_rowcount(const void* words, const void* low, int nv, int nbytes,
+// nbytes: 32 (PDQ) or 8 (pHash); nv: 1 or 8.  items: (n_items, 4) int32
+// {q0, b_begin, b_end, 0} from sweep_items; next_item: one zeroed int.
+extern "C" int rupp_hamming_rowcount(const void* packed, const void* low, const void* items,
+                                     int n_items, void* next_item, int nv, int nbytes,
                                      int npad, int n_total, int sim, void* counts,
                                      void* stream) {
-  if (npad % kBaseTile != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(npad / kBaseTile, npad / kRowThreads);
+  if (npad % kBRows != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (npad > 0) {
-    const int key = nv * 100 + nbytes;
-    switch (key) {
-      case 132: launch_rowcount<1, 8>(grid, st, words, low, npad, n_total, sim, counts); break;
-      case 832: launch_rowcount<8, 8>(grid, st, words, low, npad, n_total, sim, counts); break;
-      case 108: launch_rowcount<1, 2>(grid, st, words, low, npad, n_total, sim, counts); break;
-      case 808: launch_rowcount<8, 2>(grid, st, words, low, npad, n_total, sim, counts); break;
+  if (n_items > 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int grid = n_items < sms ? n_items : sms;
+    int err = 0;
+    switch (nv * 100 + nbytes) {
+      case 132: err = launch_rowcount<1, 32>(grid, st, packed, low, items, n_items, next_item, npad, n_total, sim, counts); break;
+      case 832: err = launch_rowcount<8, 32>(grid, st, packed, low, items, n_items, next_item, npad, n_total, sim, counts); break;
+      case 108: err = launch_rowcount<1, 8>(grid, st, packed, low, items, n_items, next_item, npad, n_total, sim, counts); break;
+      case 808: err = launch_rowcount<8, 8>(grid, st, packed, low, items, n_items, next_item, npad, n_total, sim, counts); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
+    if (err) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }

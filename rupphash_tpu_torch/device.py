@@ -1,11 +1,14 @@
 """Device policy of the port: one device per process, chosen once.
 
-cuda when PyTorch sees a card, else cpu, unless a tool pinned the
-choice first (`pin`, e.g. a self-test told to validate the CPU path on
-a machine with a card).  The choice is announced on stderr.  The float32 flags are set explicitly on the first call: PDQ
-hashes must stay bit-exact, so no TF32 anywhere (cuDNN's default allows
-it) and full-precision float32 matmuls for the plain versions that the
-kernels are checked against.
+The port runs on the card.  It runs on the CPU (the kernels' plain
+versions) only when the caller asked for it first: `pin("cpu")`, which
+the CLI's and the tools' `--device cpu` and the CPU tests call.  With
+no card visible and nothing pinned, `get()` raises a RuntimeError that
+names the missing card, so no entry point quietly falls back to the
+CPU.  The choice is announced on stderr.  The float32 flags are set
+explicitly on the first call: PDQ hashes must stay bit-exact, so no TF32
+anywhere (cuDNN's default allows it) and full-precision float32 matmuls
+for the plain versions that the kernels are checked against.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import functools
 
 import torch
 
-from rupphash_tpu.utils import trace
+from .utils import trace
 
 
 def set_precision_flags():
@@ -25,9 +28,16 @@ def set_precision_flags():
 
 _PINNED: list[str] = []   # at most one entry, written by pin() before get()
 
+NO_CARD = ("no CUDA device visible to PyTorch: rupphash_tpu_torch runs on "
+           "the card (pass --device cpu, or call device.pin('cpu'), to run "
+           "the plain versions on the CPU)")
+
 
 @functools.cache
 def get() -> torch.device:
+    """The process's device: the card, or the CPU when pinned.  Raises
+    RuntimeError (NO_CARD) when no card is visible and nothing pinned
+    the CPU; the failed call is not cached."""
     set_precision_flags()
     if _PINNED == ["cpu"]:
         dev = torch.device("cpu")
@@ -36,8 +46,7 @@ def get() -> torch.device:
         dev = torch.device("cuda", torch.cuda.current_device())
         trace.tag("DEVICE", f"cuda ({torch.cuda.get_device_name(dev)})")
     else:
-        dev = torch.device("cpu")
-        trace.tag("DEVICE", "cpu (no CUDA device visible to PyTorch)")
+        raise RuntimeError(NO_CARD)
     return dev
 
 
@@ -54,7 +63,7 @@ def pin(kind: str) -> torch.device:
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"unknown device type {kind!r}")
     if kind == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device visible to PyTorch")
+        raise RuntimeError(NO_CARD)
     if get.cache_info().currsize == 0 and not _PINNED:
         _PINNED.append(kind)
     dev = get()

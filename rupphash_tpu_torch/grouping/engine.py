@@ -24,10 +24,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rupphash_tpu.utils import trace
-
 from .. import device
 from ..ops import hamming
+from ..utils import trace
 
 PDQ_MIN_QUALITY = 50  # scanner.rs:1589
 DEFAULT_SIMILARITY = 40  # phdupes.rs:351
@@ -198,7 +197,7 @@ def apply_location_sort(groups: list[list[FileRecord]]):
     each group by path_to_marker index with usize::MAX for unmapped
     paths.  Python's sort is stable, so GPS-less files keep their
     previous relative order, matching sort_by_key."""
-    from rupphash_tpu.utils import geo
+    from ..utils import geo
 
     seen: dict = {}
     for g in groups:
@@ -412,7 +411,7 @@ def finalize_edges(files, gi: np.ndarray, gj: np.ndarray,
     # is present — the old >10k-edge threshold left mid-size edge sets
     # on the slower Python loop for no benefit
     if len(gi) > 0:
-        from rupphash_tpu import native
+        from .. import native
         roots = native.union_find_roots(n_all, gi, gj)
     else:
         roots = None

@@ -16,9 +16,11 @@ cannot be reproduced, so against the JAX package the port agrees to
 within one u8 level on a few pixels, not bit for bit
 (tests/test_torch_demosaic.py states the tolerance).
 
-`process_raw(raw, device)` takes its device explicitly: the caller
-decides where the work runs (decode worker processes pass "cpu" so that
-none of them opens a CUDA context).  Float32 throughout, TF32 off.
+`process_raw(raw, device)` takes its device from the caller, who decides
+where the work runs (decode worker processes pass "cpu" so that none of
+them opens a CUDA context); without one (the copied `dng.decode_dng`,
+`rawcontainers.decode_raw_container` and `cr3.decode_cr3`) it runs on
+the process's device.  Float32 throughout, TF32 off.
 """
 
 from __future__ import annotations
@@ -188,11 +190,11 @@ def _camera_to_srgb(color_matrix) -> np.ndarray | None:
     return m / np.maximum(m.sum(axis=1, keepdims=True), 1e-6)
 
 
-def process_raw(raw, device) -> np.ndarray | None:
-    """RawImage (rupphash_tpu/pipeline/dng.py) -> (H, W, 3) u8 sRGB,
-    computed on `device`; None for patterns the reference rejects
-    (non-RGB such as CYGM, a colour missing from an n x n pattern, a
-    mosaic smaller than its CFA)."""
+def process_raw(raw, device=None) -> np.ndarray | None:
+    """RawImage (pipeline/dng.py) -> (H, W, 3) u8 sRGB, computed on
+    `device` (default: the process's device, device.get()); None for
+    patterns the reference rejects (non-RGB such as CYGM, a colour
+    missing from an n x n pattern, a mosaic smaller than its CFA)."""
     mosaic = raw.mosaic
     if mosaic.ndim != 2 or min(mosaic.shape) < 4:
         return None
@@ -218,7 +220,7 @@ def process_raw(raw, device) -> np.ndarray | None:
     matrix = _camera_to_srgb(raw.color_matrix)
 
     devmod.set_precision_flags()
-    dev = torch.device(device)
+    dev = devmod.get() if device is None else torch.device(device)
     m = torch.from_numpy(np.ascontiguousarray(mosaic[:h2, :w2],
                                               dtype=np.float32)).to(dev)
     gains = torch.from_numpy(wb[cfa]).to(dev).repeat(h2 // n, w2 // n)

@@ -1,31 +1,38 @@
 """K3 (count sweep) and K4 (hot-row extraction) of the Hamming edge
-search (csrc/hamming.cu), K6 (the int8 tensor-core count sweep,
-csrc/hamming_mma.cu), their plain versions and input preparation.
+search (csrc/hamming.cu), K6 (the int8 tensor-core count sweep of the
+JAX package's profiling script, csrc/hamming_mma.cu), their plain
+versions and input preparation.
 
 K3 and K4 replace rupphash_tpu/ops/hamming_pallas.py::_rowcount_kernel
-and ::_extract_kernel.  The JAX package fed its kernels +/-1 int8
-encodings (V, Npad, nbits); K3 and K4 keep the hashes packed, as the
-(V, Npad, nbytes) u8 tensor the JAX package shipped to the device
-before unpacking it.  They read it in place as u32 words (8 per 256-bit
-PDQ hash, 2 per 64-bit pHash) and test XOR + popcount, the same
-predicate as the TPU's dot >= nbits - 2 * sim.  K6 replaces
-_prof_nz.py::_rowcount_kernel_dg and takes that kernel's own +/-1 int8
-input.  Outputs keep the JAX layouts: per-row counts (Npad, 1) int32
-and packed match masks (MQ, Npad / 8) u8 with bit j % 8 of byte j // 8.
+and ::_extract_kernel.  Both take the hashes packed, as the (V, Npad,
+nbytes) u8 tensor the JAX package shipped to the device before
+unpacking it to +/-1 int8.  K3 expands the packed bits to +/-1 int8 in
+shared memory and takes the dots on the int8 tensor cores (wgmma); K4
+tests XOR + popcount on u32 words; both apply the TPU's predicate
+dot >= nbits - 2 * sim.  K6 replaces _prof_nz.py::_rowcount_kernel_dg
+and takes that kernel's own +/-1 int8 input.  Outputs keep the JAX
+layouts: per-row counts (Npad, 1) int32 and packed match masks (MQ,
+Npad / 8) u8 with bit j % 8 of byte j // 8.
 
-Rows pad to a multiple of ROW_ALIGN, the count sweep's base tile, so
-its shared-memory staging never reads past the end.  Padding rows are
-marked low-confidence and masked by index.
+Rows pad to a multiple of ROW_ALIGN, K6's base tile (a multiple of K3's
+and of K4's), so shared-memory staging never reads past the end.
+Padding rows are marked low-confidence and masked by index.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from . import _build, hamming
 
-ROW_ALIGN = 1024          # csrc/hamming.cu and hamming_mma.cu kBaseTile
+ROW_ALIGN = 1024          # csrc/hamming_mma.cu kBaseTile
+SWEEP_QROWS = 64          # csrc/hamming.cu kQRows: query rows per K3 item
+SWEEP_BROWS = 128         # csrc/hamming.cu kBRows: base rows per K3 tile
+SWEEP_GROUPS = 2          # csrc/hamming.cu kGroups: warpgroups per K3 block
+SWEEP_ITEM_TILES = 64     # base tiles per K3 work item
 KERNEL_NBYTES = (8, 32)   # hash widths the kernels are built for (pHash, PDQ)
 KERNEL_VARIANTS = (1, 8)  # query variant counts the kernels are built for
 
@@ -129,6 +136,51 @@ def _check_low(low_i32, npad, like):
         raise ValueError("low_i32 must be (Npad, 1) int32 beside the hashes")
 
 
+def sweep_items(n_total: int, npad: int) -> np.ndarray:
+    """K3's work list: (n_items, 4) int32 rows [q0, b_begin, b_end, 0].
+
+    Item k pairs query rows [q0, q0 + SWEEP_QROWS) with base rows
+    [b_begin, b_end), a run of at most SWEEP_ITEM_TILES tiles of
+    SWEEP_BROWS rows.  Query tiles run over the rows that have a partner
+    j > i below n; each one's base tiles start at the tile holding
+    q0 + 1, so no tile lies wholly on or below the diagonal, and end at
+    the tile holding n - 1.  Every pair i < j < n falls in exactly one
+    item.  Items come in query-tile order, so the short runs near the
+    end of the triangle are taken last."""
+    n = min(int(n_total), int(npad))
+    if n < 2:
+        return np.zeros((0, 4), dtype=np.int32)
+    q0 = np.arange(0, n - 1, SWEEP_QROWS, dtype=np.int64)
+    b_first = (q0 + 1) // SWEEP_BROWS * SWEEP_BROWS
+    b_last = -(-n // SWEEP_BROWS) * SWEEP_BROWS
+    span = SWEEP_BROWS * SWEEP_ITEM_TILES
+    runs = -(-(b_last - b_first) // span)
+    first_run = np.repeat(np.cumsum(runs) - runs, runs)
+    start = (np.repeat(b_first, runs)
+             + span * (np.arange(int(runs.sum())) - first_run))
+    items = np.zeros((len(start), 4), dtype=np.int32)
+    items[:, 0] = np.repeat(q0, runs)
+    items[:, 1] = start
+    items[:, 2] = np.minimum(start + span, b_last)
+    return items
+
+
+def sweep_tiles(items: np.ndarray):
+    """The (q0, b0, warpgroup) base tiles K3's blocks visit for `items`,
+    in the kernel's order: warpgroup g takes tiles b_begin + (2k + g) *
+    SWEEP_BROWS."""
+    for q0, b_begin, b_end, _ in items.tolist():
+        for g in range(SWEEP_GROUPS):
+            for b0 in range(b_begin + g * SWEEP_BROWS, b_end,
+                            SWEEP_GROUPS * SWEEP_BROWS):
+                yield q0, b0, g
+
+
+@functools.lru_cache(maxsize=8)
+def _sweep_items_on(n_total: int, npad: int, dev: torch.device):
+    return torch.from_numpy(sweep_items(n_total, npad)).to(dev)
+
+
 def scan_row_counts(var_bits, low_i32, *, sim=40, n_total=0):
     """var_bits (V, Npad, nbytes) u8; low_i32 (Npad, 1) int32 -> (Npad, 1)
     int32 per-row match counts over pairs j > i, both < n_total.  CUDA
@@ -147,12 +199,15 @@ def scan_row_counts(var_bits, low_i32, *, sim=40, n_total=0):
     if not (var_bits.is_contiguous() and low_i32.is_contiguous()):
         raise ValueError("K3 takes contiguous tensors")
     counts = torch.zeros((npad, 1), dtype=torch.int32, device=var_bits.device)
-    err = _build.load().lib.rupp_hamming_rowcount(
-        var_bits.data_ptr(), low_i32.data_ptr(), v, nbytes, npad,
-        int(n_total), int(sim), counts.data_ptr(),
-        _build.stream_ptr(var_bits))
-    _build.check(err, "hamming_rowcount_kernel")
-    _build.count_launch(scan_row_counts)
+    items = _sweep_items_on(int(n_total), npad, var_bits.device)
+    if len(items):
+        next_item = torch.zeros(1, dtype=torch.int32, device=var_bits.device)
+        err = _build.load().lib.rupp_hamming_rowcount(
+            var_bits.data_ptr(), low_i32.data_ptr(), items.data_ptr(),
+            len(items), next_item.data_ptr(), v, nbytes, npad, int(n_total),
+            int(sim), counts.data_ptr(), _build.stream_ptr(var_bits))
+        _build.check(err, "hamming_rowcount_kernel")
+        _build.count_launch(scan_row_counts)
     return counts
 
 

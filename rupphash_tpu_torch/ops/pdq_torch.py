@@ -20,9 +20,8 @@ import functools
 import numpy as np
 import torch
 
-from rupphash_tpu.ops import pdq_ref
-
 from .. import device
+from . import pdq_ref
 
 BUFFER_W_H = pdq_ref.BUFFER_W_H
 DCT_OUTPUT_W_H = pdq_ref.DCT_OUTPUT_W_H
@@ -212,7 +211,7 @@ def _run(planes: torch.Tensor, l_unique: np.ndarray, r_unique: np.ndarray,
     return pdq_cuda.pdq_hash(
         planes, torch.from_numpy(l_unique).to(dev),
         torch.from_numpy(r_unique).to(dev),
-        torch.from_numpy(shape_idx).to(dev),
+        torch.from_numpy(shape_idx),   # checked on the host, then uploaded
         torch.from_numpy(dct16x64()).to(dev))
 
 

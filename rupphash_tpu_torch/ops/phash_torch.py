@@ -9,7 +9,7 @@ plane X, the classic pHash's triangle resize to 32x32 and the top-left
 so one image is two float32 matmuls (TF32 off, the device policy), a
 median over the 63 non-DC coefficients and bit packing.  The JAX module
 has no Pallas kernel, so neither has this one.  The operators and the
-golden come from the JAX package's jax-free phash_ref.
+golden come from ops/phash_ref.py, the port's copy of the JAX package's.
 """
 
 from __future__ import annotations
@@ -19,9 +19,8 @@ import functools
 import numpy as np
 import torch
 
-from rupphash_tpu.ops import phash_ref
-
 from .. import device
+from . import phash_ref
 from .pdq_torch import _as_device_u8
 
 HASH_SIZE = phash_ref.HASH_SIZE

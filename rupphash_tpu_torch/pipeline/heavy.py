@@ -1,23 +1,19 @@
 """Heavy per-file scan work of the port, run in decode workers.
 
-A copy of rupphash_tpu/pipeline/heavy.py (`heavy_prepare` :19-84) that
-decodes through the port's pipeline/decode.py, so a preview-less RAW
-file is demosaiced by the port on the caller's `device` instead of
-reaching the reference's jax demosaic.  The fused JPEG/PNG/WebP/RAW-
-preview probes are the reference's, unchanged.  Imports neither torch
-nor jax: spawned workers import it fresh, and torch is imported only if
-a preview-less raw needs the demosaic.
+A copy of rupphash_tpu/pipeline/heavy.py (`heavy_prepare` :19-84) whose
+decode takes the caller's `device`, so a preview-less RAW file is
+demosaiced by the port where the caller says.  The fused JPEG/PNG/WebP/
+RAW-preview probes are the reference's, in the port's own native/.
+Imports no torch: spawned workers import it fresh, and torch is
+imported only if a preview-less raw needs the demosaic.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 
-from rupphash_tpu.pipeline import decode as ref_decode
-from rupphash_tpu.pipeline import exif
-from rupphash_tpu.utils import hashes as H
-
-from . import decode
+from ..utils import hashes as H
+from . import decode, exif
 
 
 def heavy_prepare(path, content_key: bytes | None, want_pixel_hash: bool,
@@ -44,21 +40,21 @@ def heavy_prepare(path, content_key: bytes | None, want_pixel_hash: bool,
     # containers hash their embedded preview)
     fast = None
     if not want_pixel_hash:
-        special = ref_decode.is_raw_ext(path) or \
+        special = decode.is_raw_ext(path) or \
             path.suffix.lower().lstrip(".") in ("heic", "heif", "jxl",
                                                 "pdf")
         if data[:3] == b"\xff\xd8\xff" and not special:
-            from rupphash_tpu.native import jpegfast
+            from ..native import jpegfast
             fast = jpegfast.probe_luma(data)
         elif data[:8] == b"\x89PNG\r\n\x1a\n" and not special:
-            from rupphash_tpu.native import pngfast
+            from ..native import pngfast
             fast = pngfast.probe_luma(data)
         elif (data[:4] == b"RIFF" and data[8:12] == b"WEBP"
               and not special):
-            from rupphash_tpu.native import webpfast
+            from ..native import webpfast
             fast = webpfast.probe_luma(data)
-        elif ref_decode.is_raw_ext(path):
-            fast = ref_decode.probe_luma_raw_preview(data)
+        elif decode.is_raw_ext(path):
+            fast = decode.probe_luma_raw_preview(data)
     if fast is not None:
         luma, res = fast
         out["res"] = res
@@ -76,5 +72,5 @@ def heavy_prepare(path, content_key: bytes | None, want_pixel_hash: bool,
         out["pixel_hash"] = H.pixel_hash_rgba16(
             content_key if content_key is not None else b"\x00" * 32,
             img)
-    out["luma"] = ref_decode.prepare_luma_fast(img)
+    out["luma"] = decode.prepare_luma_fast(img)
     return out

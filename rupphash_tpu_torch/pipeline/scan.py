@@ -30,14 +30,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rupphash_tpu.ops import pdq_ref
-from rupphash_tpu.pipeline import walker
-from rupphash_tpu.utils import hashes as H
-from rupphash_tpu.utils import trace
-
 from .. import device
 from ..grouping import engine
-from ..ops import hamming_cuda, pdq_cuda, pdq_torch
+from ..ops import hamming_cuda, pdq_cuda, pdq_ref, pdq_torch
+from ..utils import hashes as H
+from ..utils import trace
+from . import walker
 
 
 @dataclasses.dataclass
@@ -218,6 +216,7 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
     (ops.hamming.find_edges_fast_resident).  Cache hits contribute one
     uploaded batch of their host-regenerated dihedral sets."""
     cfg = cfg or ScanConfig()
+    device.get()   # the card unless the CPU was pinned: raises before any work
     t0 = _time.perf_counter()
     files = walker.collect_files(paths, recursive=cfg.recursive)
     stats = ScanStats(total=len(files))

@@ -37,12 +37,11 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from rupphash_tpu.pipeline.decode import prepare_luma_fast
-from rupphash_tpu.utils import netguard
-
 from . import device
 from .ops import hamming, pdq_torch
 from .pipeline import decode
+from .pipeline.decode import prepare_luma_fast
+from .utils import netguard
 
 PDQ_MIN_QUALITY = 50
 
@@ -546,7 +545,7 @@ def run_serve(args) -> int:
     load --index-file) and answer queries until interrupted; the index
     is saved to --index-file on the way out, /v1/add mutations
     included."""
-    from rupphash_tpu.utils import trace
+    from .utils import trace
 
     from .pipeline import scan as scanmod
 

@@ -1,0 +1,127 @@
+"""Time the main path's kernels of two checkouts on one card, in turns.
+
+    python -m rupphash_tpu_torch.tools.kernel_ab OTHER_CHECKOUT
+
+Runs the same measurement in a fresh process of each checkout, in the
+order other, this, this, other, so that the two versions share the card
+and its power limit: K1 (`pdq_cuda.pdq_hash`) at B=256 for 288x512,
+240x320 and 512x288 (rows x columns) textured lumas, and K3
+(`hamming_cuda.scan_row_counts`) at N=100,000 hashes x 8 variants, sim
+40.  Each process builds its own checkout's kernels and draws the same
+inputs from one seed; a digest of the outputs shows that the two
+versions computed the same thing.  Prints one JSON line per run and a
+summary line of the mean times.  Needs a card (exit 3 without one).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+
+_CHILD = r"""
+import hashlib, json
+import numpy as np
+import torch
+from rupphash_tpu_torch.ops import hamming_cuda, pdq_cuda, pdq_torch
+
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+out = {}
+rng = np.random.default_rng(20261016)
+d16 = torch.from_numpy(pdq_torch.dct16x64()).to(dev)
+for rows, cols in ((288, 512), (240, 320), (512, 288)):
+    small = torch.from_numpy(rng.integers(0, 256, (256, 1, 24, 32))
+                             .astype(np.float32)).to(dev)
+    lumas = torch.nn.functional.interpolate(
+        small, size=(rows, cols), mode="bilinear", align_corners=False
+    ).round().clamp(0, 255).to(torch.uint8)[:, 0].contiguous()
+    l_op, r_op = pdq_torch.linear_operators(rows, cols)
+    args = (lumas, torch.from_numpy(l_op)[None].to(dev),
+            torch.from_numpy(r_op)[None].to(dev),
+            torch.zeros(256, dtype=torch.int32, device=dev), d16)
+    res = pdq_cuda.pdq_hash(*args)
+    digest = hashlib.sha256(res["dihedral"].cpu().numpy().tobytes()
+                            + res["quality"].cpu().numpy().tobytes())
+    out[f"k1_{rows}x{cols}"] = {"ms": ms(lambda: pdq_cuda.pdq_hash(*args), 50),
+                                "digest": digest.hexdigest()[:16]}
+n = 100_000
+base = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+var = rng.integers(0, 256, (n, 8, 32), dtype=np.uint8)
+pairs = rng.integers(0, n, (2000, 2))
+base[pairs[:, 1]] = base[pairs[:, 0]]
+var[:, 0] = base
+low = np.zeros(n, dtype=bool)
+var_bits, low_d, _, _ = hamming_cuda.prepare_inputs_device(base, var, low)
+counts = hamming_cuda.scan_row_counts(var_bits, low_d, sim=40, n_total=n)
+out["k3_100k"] = {"ms": ms(lambda: hamming_cuda.scan_row_counts(
+    var_bits, low_d, sim=40, n_total=n), 5),
+    "digest": hashlib.sha256(counts.cpu().numpy().tobytes()).hexdigest()[:16]}
+print(json.dumps(out))
+"""
+
+
+def _run(checkout: Path) -> dict:
+    env = {**os.environ, "PYTHONPATH": str(checkout)}
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=checkout,
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{checkout}: exit {proc.returncode}\n"
+                           f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m rupphash_tpu_torch.tools.kernel_ab",
+        description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", type=Path, help="another checkout of the repo")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device visible to PyTorch: kernel_ab times "
+              "kernels on the card", file=sys.stderr)
+        return 3
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    runs = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        res = _run(args.other.resolve() if who == "other" else ROOT)
+        runs[who].append(res)
+        print(json.dumps({"checkout": who, **res}), flush=True)
+    summary = {}
+    for key in runs["this"][0]:
+        this = [r[key]["ms"] for r in runs["this"]]
+        other = [r[key]["ms"] for r in runs["other"]]
+        same = len({r[key]["digest"] for r in runs["this"] + runs["other"]})
+        summary[key] = {"this_ms": sum(this) / 2, "other_ms": sum(other) / 2,
+                        "same_output": same == 1}
+    print(json.dumps({"summary": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

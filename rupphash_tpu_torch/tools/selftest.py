@@ -16,7 +16,7 @@ in the same order, each against the numpy goldens:
   7. Serve query op: exact query through HashIndex
   8. find_edges_fast (K3 + K4) planted edges
   9. Native raw codecs vs their Python oracles, native AEAD and the
-     fused decoder probes (host code, reused from rupphash_tpu)
+     fused decoder probes (the port's copies of the host code)
 Without a card it exits 3 unless --device cpu asks it to validate the
 plain CPU path.  Before the summary it prints each kernel's launches.
 Exit codes: 0 all checks pass, 1 a check failed, 3 no card.
@@ -38,10 +38,10 @@ KERNELS = ("pdq_hash_kernel", "pdq_coeffs_kernel", "hamming_rowcount_kernel",
 
 def _host_checks(rng, check):
     """Checks 9+: native raw codecs, AEAD and fused decoder probes, as the
-    reference's self-test runs them (host code of rupphash_tpu)."""
+    reference's self-test runs them (the port's copies of its host code)."""
     try:
-        from rupphash_tpu import native
-        from rupphash_tpu.pipeline import rawcontainers as rc
+        from .. import native
+        from ..pipeline import rawcontainers as rc
         stream = rng.integers(0, 256, 300, dtype=np.uint8).tobytes()
         curve = np.arange(0x4000, dtype=np.uint16)
         vp = np.array([600, 600, 600, 600], dtype=np.uint16)
@@ -65,7 +65,7 @@ def _host_checks(rng, check):
         f2 = rc._orf_decode_py(s4, 20, 6)
         check("ORF C++ vs Python oracle",
               f1 is not None and np.array_equal(f1, f2))
-        from rupphash_tpu.pipeline import cr3 as cr3mod
+        from ..pipeline import cr3 as cr3mod
         g1 = native.crx_decode_plane(s4, 12, 6, 12)
         g2 = cr3mod.crx_decode_plane_py(s4, 12, 6, 12)
         check("CRX plane C++ vs Python oracle",
@@ -109,8 +109,8 @@ def _host_checks(rng, check):
         from cryptography.hazmat.primitives.ciphers.aead import \
             ChaCha20Poly1305
 
-        from rupphash_tpu import native
-        from rupphash_tpu.cache import crypto as ccrypto
+        from .. import native
+        from ..cache import crypto as ccrypto
         if native.get_lib() is not None:
             key = secrets.token_bytes(32)
             nonce = secrets.token_bytes(24)
@@ -135,7 +135,7 @@ def _host_checks(rng, check):
                            ("WebP", "webpfast")):
         try:
             import importlib
-            mod = importlib.import_module(f"rupphash_tpu.native.{modname}")
+            mod = importlib.import_module(f"..native.{modname}", __package__)
             if mod.available():
                 check(f"fused {label} probe self-equality", True)
             else:
@@ -157,10 +157,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from rupphash_tpu.ops import pdq_ref, phash_ref
-
     from .. import serve
-    from ..ops import hamming, hamming_cuda, pdq_hybrid, pdq_torch, phash_torch
+    from ..ops import (hamming, hamming_cuda, pdq_hybrid, pdq_ref, pdq_torch,
+                       phash_ref, phash_torch)
 
     print(f"device: {dev}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  devices: {torch.cuda.device_count()}")

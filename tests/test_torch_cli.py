@@ -17,8 +17,15 @@ from PIL import Image
 from rupphash_tpu.cache import config as cfgmod
 from rupphash_tpu.cache.store import CacheStore
 from rupphash_tpu.pipeline import scan as ref_scan
-from rupphash_tpu_torch import cli
+from rupphash_tpu_torch import cli, device
 from rupphash_tpu_torch.pipeline import scan
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the card unless asked for the CPU: these tests ask."""
+    device.pin("cpu")
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -69,7 +76,8 @@ def _run(module, args, tmp_path):
 
 
 def test_cli_prints_same_groups_as_reference(photos, tmp_path):
-    ours = _run("rupphash_tpu_torch", ["--no-cache", str(photos)], tmp_path)
+    ours = _run("rupphash_tpu_torch", ["--no-cache", "--device", "cpu",
+                                       str(photos)], tmp_path)
     ref = _run("rupphash_tpu", ["--no-cache", str(photos)], tmp_path)
     assert ours == ref
     assert "Found 2 duplicate groups" in ours
@@ -114,7 +122,9 @@ def test_cli_surface(capsys):
     assert "--use-tui is not ported" in capsys.readouterr().err
     assert cli.main(["--serve"]) == 2
     assert "paths required" in capsys.readouterr().err
-    assert cli.main(["--show-build-info"]) == 0
+    assert cli.main(["--show-build-info"]) == 3   # no card, CPU not asked for
+    assert "no CUDA device" in capsys.readouterr().err
+    assert cli.main(["--show-build-info", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert '"torch"' in out and '"device": "cpu"' in out
 
@@ -136,7 +146,7 @@ def ignored_cache(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         for k, v in env.items():
             mp.setenv(k, v)
-        assert cli.main([str(d)]) == 0
+        assert cli.main([str(d), "--device", "cpu"]) == 0
         conf = cfgmod.load_config()
         store = CacheStore(cfgmod.cache_dir() / "cache.db",
                            conf["_master_key_bytes"])
@@ -208,7 +218,7 @@ def test_serve_cli_answers_and_saves_on_sigint(photos, tmp_path):
            "RUPPHASH_CACHE_DIR": str(tmp_path / "cache")}
     proc = subprocess.Popen(
         [sys.executable, "-m", "rupphash_tpu_torch", "--serve", str(photos),
-         "--port", "0", "--index-file", str(index_file)],
+         "--device", "cpu", "--port", "0", "--index-file", str(index_file)],
         cwd=ROOT, env=env, stderr=subprocess.PIPE, text=True)
     try:
         lines = []

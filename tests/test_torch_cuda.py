@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from rupphash_tpu_torch import device
 from rupphash_tpu_torch.ops import (_build, hamming, hamming_cuda, pdq_cuda,
                                     pdq_hybrid, pdq_torch, restack)
 
@@ -18,7 +19,7 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+    return device.pin("cuda")
 
 
 def _k1_args(dev, b=8, rows=200, cols=150, seed=0):
@@ -102,6 +103,11 @@ def test_cuda_inputs_outside_the_kernels_raise(dev):
     lumas, l_u, r_u, idx, d16 = _k1_args(dev)
     with pytest.raises(ValueError):   # shape index past the operators
         pdq_cuda.pdq_hash(lumas, l_u, r_u, idx + 1, d16)
+    with pytest.raises(ValueError):   # the same, checked on the host
+        pdq_cuda.pdq_hash(lumas, l_u, r_u, (idx + 1).cpu(), d16)
+    host = pdq_cuda.pdq_hash(lumas, l_u, r_u, idx.cpu(), d16)
+    assert torch.equal(host["dihedral"],
+                       pdq_cuda.pdq_hash(lumas, l_u, r_u, idx, d16)["dihedral"])
     with pytest.raises(ValueError):   # K2 holds at most 512 rows of L
         pdq_hybrid.pdq_coeffs(
             torch.zeros((1, 520, 8), dtype=torch.uint8, device=dev),
@@ -171,6 +177,55 @@ def test_k6_and_k3_k4_at_both_widths_match_plain(dev, nbytes, v):
     assert set(zip(ei.tolist(), ej.tolist())) == set(zip(*(a.tolist()
                                                          for a in want)))
     assert (100, 2400) in set(zip(ei.tolist(), ej.tolist()))
+
+
+@pytest.mark.parametrize("n", [1, 2, 1023, 1025, 3000, 20_000])
+@pytest.mark.parametrize("nbytes", [8, 32])
+@pytest.mark.parametrize("v", [1, 8])
+def test_k3_tile_walk_equals_plain_and_k6(dev, n, nbytes, v):
+    """The redesigned K3 (wgmma, persistent blocks over the upper
+    triangle) at sizes around its 64-row query and 128-row base tiles."""
+    rng = np.random.default_rng(n + nbytes + v)
+    base = rng.integers(0, 256, (n, nbytes), dtype=np.uint8)
+    var = rng.integers(0, 256, (n, v, nbytes), dtype=np.uint8)
+    for i, j in ((0, n - 1), (63, 64), (127, 128), (n // 2, n // 2 + 1)):
+        if 0 <= i < j < n:
+            base[j] = base[i] ^ 1
+    var[:, 0] = base
+    low = rng.random(n) < 0.01
+    var_bits, low_d, _, _ = hamming_cuda.prepare_inputs_device(base, var, low)
+    sim = 4 if nbytes == 8 else 40
+    k3 = hamming_cuda.scan_row_counts(var_bits, low_d, sim=sim, n_total=n)
+    k6 = hamming_cuda.scan_row_counts_pm1(
+        hamming.unpack_bits_pm1(var_bits).contiguous(), low_d, sim=sim,
+        n_total=n)
+    plain = hamming_cuda.scan_row_counts_plain(var_bits, low_d, sim=sim,
+                                               n_total=n)
+    torch.cuda.synchronize()
+    assert torch.equal(k3, plain) and torch.equal(k6, plain)
+
+
+@pytest.mark.parametrize("shape", [(288, 512), (240, 320), (512, 288),
+                                   (97, 131), (64, 500)])
+def test_k1_is_bit_identical_to_plain_and_pdq_ref(dev, shape):
+    """The redesigned K1 (register tiles, cp.async double buffering):
+    dihedral hashes and quality bit-identical to the plain version, and
+    equal to the numpy golden."""
+    from rupphash_tpu_torch.ops import pdq_ref
+
+    args = _k1_args(dev, b=6, rows=shape[0], cols=shape[1], seed=shape[1])
+    k = pdq_cuda.pdq_hash(*args)
+    p = pdq_cuda.pdq_hash_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k["dihedral"], p["dihedral"])
+    assert torch.equal(k["quality"].view(torch.int32),
+                       p["quality"].view(torch.int32))
+    lumas = args[0].cpu().numpy()
+    for i in range(len(lumas)):
+        coeffs, _, quality = pdq_ref.pdq_from_luma(lumas[i])
+        assert [bytes(h) for h in k["dihedral"][i].cpu().numpy()] == \
+            pdq_ref.dihedral_hashes(coeffs)
+        assert abs(float(k["quality"][i]) - quality) < 1e-6
 
 
 def _mosaic_scene(h, w, cfa, seed):

@@ -19,8 +19,16 @@ from rupphash_tpu.ops import demosaic as jdemosaic
 from rupphash_tpu.pipeline import decode as jdecode
 from rupphash_tpu.pipeline import heavy as jheavy
 from rupphash_tpu.pipeline.dng import RawImage
+from rupphash_tpu_torch import device
 from rupphash_tpu_torch.ops import demosaic
 from rupphash_tpu_torch.pipeline import decode, heavy
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the card unless asked for the CPU: these tests ask."""
+    device.pin("cpu")
+
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent))
 from test_dng import _scene, write_dng  # noqa: E402

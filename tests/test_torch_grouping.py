@@ -8,8 +8,15 @@ import torch
 
 from rupphash_tpu.grouping import engine as ref_engine
 from rupphash_tpu.ops import pdq_ref
-from rupphash_tpu.utils import trace
+from rupphash_tpu_torch import device
 from rupphash_tpu_torch.grouping import engine
+from rupphash_tpu_torch.utils import trace
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the card unless asked for the CPU: these tests ask."""
+    device.pin("cpu")
 
 
 def _flip(h, positions):

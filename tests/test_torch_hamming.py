@@ -7,7 +7,14 @@ import torch
 
 from rupphash_tpu.ops import hamming as jhamming
 from rupphash_tpu.ops import hamming_pallas
+from rupphash_tpu_torch import device
 from rupphash_tpu_torch.ops import hamming, hamming_cuda
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the card unless asked for the CPU: these tests ask."""
+    device.pin("cpu")
 
 
 def _flip(h, positions):

@@ -6,9 +6,16 @@ import pytest
 import torch
 
 from rupphash_tpu.ops import pdq_jax, pdq_pallas, pdq_ref
+from rupphash_tpu_torch import device
 from rupphash_tpu_torch.ops import pdq_hybrid, pdq_torch
 
 SHAPES = [(128, 96), (64, 64), (512, 288), (240, 320), (33, 501)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the card unless asked for the CPU: these tests ask."""
+    device.pin("cpu")
 
 
 def _bits(a) -> np.ndarray:

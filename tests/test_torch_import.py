@@ -1,10 +1,21 @@
-"""The PyTorch port imports no jax and needs neither triton nor nvcc to
-import or to run its plain (CPU) path."""
+"""The PyTorch port imports neither jax nor the JAX package, and needs
+neither triton nor nvcc to import or to run its plain (CPU) path."""
 import os
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
+
+from rupphash_tpu_torch import device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the card unless asked for the CPU: these tests ask."""
+    device.pin("cpu")
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -37,7 +48,9 @@ import importlib, sys
 import numpy as np
 for m in {mods!r}:
     importlib.import_module(m)
+from rupphash_tpu_torch import device
 from rupphash_tpu_torch.ops import _build, hamming, pdq_torch
+device.pin("cpu")
 rng = np.random.default_rng(0)
 out = pdq_torch.pdq_hash_batch(rng.integers(0, 256, (2, 40, 50), dtype=np.uint8))
 assert out["dihedral"].shape == (2, 8, 32)
@@ -81,9 +94,10 @@ import json, pathlib, tempfile, threading, urllib.request
 from PIL import Image
 sys.path.insert(0, "tests")
 from test_dng import _scene, write_dng
-from rupphash_tpu_torch import serve
+from rupphash_tpu_torch import device, serve
 from rupphash_tpu_torch.ops import demosaic
 from rupphash_tpu_torch.pipeline import scan
+device.pin("cpu")
 rgb, mosaic = _scene(240, 320, seed=11)
 d = pathlib.Path(tempfile.mkdtemp())
 dng = write_dng(mosaic, cm=demosaic._XYZ2SRGB)     # no embedded preview
@@ -133,3 +147,90 @@ def test_no_jax_import_in_port_sources():
     offenders += [p.name for p in [ROOT / "chip_smoke.py"]
                   if p.exists() and pattern.search(p.read_text())]
     assert offenders == []
+
+
+_ALONE_CHILD = """
+import sys
+sys.modules["rupphash_tpu"] = None      # any import of the JAX package fails
+sys.modules["jax"] = None
+import importlib, io, json, pathlib, pkgutil, tempfile, threading
+import urllib.request
+import numpy as np
+from PIL import Image
+import chip_smoke
+import rupphash_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(rupphash_tpu_torch.__path__,
+                                              "rupphash_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+from rupphash_tpu_torch import cli, device, serve
+from rupphash_tpu_torch.pipeline import scan
+from rupphash_tpu_torch.tools import selftest
+device.pin("cpu")
+rng = np.random.default_rng(4)
+d = pathlib.Path(tempfile.mkdtemp())
+for k, (fmt, ext) in enumerate((("JPEG", "jpg"), ("PNG", "png"),
+                                ("WEBP", "webp"))):
+    small = rng.integers(0, 256, (24, 32, 3), dtype=np.uint8)
+    img = Image.fromarray(small).resize((320, 240), Image.BILINEAR)
+    img.save(d / f"img{k}.{ext}", format=fmt, quality=95)
+    img.save(d / f"img{k}_twin.png")
+rgb, dng = chip_smoke.dng_scene(rng)
+(d / "raw.dng").write_bytes(dng)
+Image.fromarray(rgb).save(d / "raw_twin.png")
+groups, infos, records, stats = scan.scan_and_group(
+    [d], scan.ScanConfig(batch_size=4))
+assert stats.failed == 0, stats
+got = sorted(sorted(f.path.name for f in g) for g in groups)
+assert got == [["img0.jpg", "img0_twin.png"], ["img1.png", "img1_twin.png"],
+               ["img2.webp", "img2_twin.png"], ["raw.dng", "raw_twin.png"]], got
+svc = serve.NearDupService(serve.HashIndex.from_records(records))
+httpd, port = svc.serve()
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/query",
+                             data=(d / "img2.webp").read_bytes(), method="POST")
+with urllib.request.urlopen(req, timeout=60) as r:
+    out = json.loads(r.read())
+httpd.shutdown()
+httpd.server_close()
+assert sorted(pathlib.Path(m["path"]).name for m in out["matches"]) == [
+    "img2.webp", "img2_twin.png"], out
+assert cli.main([str(d), "--no-cache", "--device", "cpu"]) == 0
+assert selftest.main(["--device", "cpu"]) == 0
+assert sys.modules["rupphash_tpu"] is None and sys.modules["jax"] is None
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in ("rupphash_tpu", "jax"))
+assert not loaded, loaded
+print("OK", len(mods))
+"""
+
+
+def test_port_runs_with_the_jax_package_blocked(tmp_path):
+    """With every import of `rupphash_tpu` and of jax failing, every
+    module of the port imports, and the scan (JPEG, PNG, WebP and a
+    preview-less DNG, each with a PNG twin), a /v1/query, the CLI and
+    the self-test run on the CPU."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _ALONE_CHILD], cwd=ROOT, capture_output=True,
+        text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT), "CUDA_VISIBLE_DEVICES": "",
+             "HOME": str(tmp_path)})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().splitlines()[-1].startswith("OK ")
+    assert "Found 4 duplicate groups" in proc.stdout
+
+
+def test_no_jax_package_import_in_port_sources():
+    """No module of the port, and not chip_smoke.py, imports the JAX
+    package (eagerly, lazily or through importlib)."""
+    pattern = re.compile(
+        r"^\s*(import rupphash_tpu(?!_torch)\b|from rupphash_tpu(?!_torch)\b)"
+        r"|import_module\(\s*f?[\"']rupphash_tpu(?!_torch)\b", re.MULTILINE)
+    files = [*(ROOT / "rupphash_tpu_torch").rglob("*.py"),
+             ROOT / "chip_smoke.py"]
+    offenders = [str(p.relative_to(ROOT)) for p in files
+                 if pattern.search(p.read_text())]
+    assert offenders == []
+    assert pattern.search("from rupphash_tpu.utils import trace")
+    assert pattern.search("    import rupphash_tpu")
+    assert not pattern.search("from rupphash_tpu_torch import device")

@@ -6,8 +6,15 @@ import torch
 from PIL import Image
 
 from rupphash_tpu.ops import pdq_jax, pdq_pallas, pdq_ref
+from rupphash_tpu_torch import device
 from rupphash_tpu_torch.ops import pdq_cuda, pdq_torch
 from tests.conftest import lcg_buffer64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the card unless asked for the CPU: these tests ask."""
+    device.pin("cpu")
 
 
 def _textured(rng, rows, cols):

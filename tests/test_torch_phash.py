@@ -5,7 +5,14 @@ import pytest
 import torch
 
 from rupphash_tpu.ops import phash_jax, phash_ref
+from rupphash_tpu_torch import device
 from rupphash_tpu_torch.ops import phash_torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the card unless asked for the CPU: these tests ask."""
+    device.pin("cpu")
 
 
 @pytest.mark.parametrize("shape", [(32, 32), (512, 288), (97, 131)])

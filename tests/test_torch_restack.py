@@ -5,8 +5,15 @@ import numpy as np
 import pytest
 import torch
 
+from rupphash_tpu_torch import device
 from rupphash_tpu_torch.ops import restack
 from rupphash_tpu_torch.tools import mosaic_repro
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the card unless asked for the CPU: these tests ask."""
+    device.pin("cpu")
 
 
 def _numpy_restack(x: np.ndarray, width: int, slices: int = 8) -> np.ndarray:

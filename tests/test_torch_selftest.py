@@ -1,8 +1,16 @@
 """The port's hardware self-test: on the CPU path it passes every check;
 without a card and without --device cpu it refuses to run (exit 3)."""
+import pytest
 import torch
 
+from rupphash_tpu_torch import device
 from rupphash_tpu_torch.tools import prof_nz, selftest
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the card unless asked for the CPU: these tests ask."""
+    device.pin("cpu")
 
 
 def test_selftest_cpu_path_passes(capsys):

@@ -7,7 +7,14 @@ import numpy as np
 import pytest
 
 from rupphash_tpu import serve as jserve
+from rupphash_tpu_torch import device
 from rupphash_tpu_torch import serve as tserve
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the card unless asked for the CPU: these tests ask."""
+    device.pin("cpu")
 
 
 def _flip(h: bytes, positions) -> bytes:
