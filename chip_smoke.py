@@ -11,16 +11,24 @@ failure exits non-zero:
   3. K1 (PDQ hash) against its plain PyTorch version (dihedral and
      quality bit-identical) and the numpy golden, at B=256 for 512x288,
      320x240 and a batch of 8 mixed shapes, with its bound and share;
-  4. K2 (hybrid PDQ front half) against its plain version, and its
-     hashes against K1's and the numpy golden, on phase 3's batches and
-     a B=256 batch of 512 rows x 288 columns (the self-test's shape);
+  4. K2 (hybrid PDQ hasher) against its plain version, its fused
+     dihedral hashes against dihedral_from_coeffs of its own coefficients,
+     against K1's and the numpy golden, on phase 3's batches, a B=256
+     batch of 512 rows x 288 columns (the self-test's shape) and batches
+     of 1 and 257; the hybrid entry timed with the epilogue in the kernel
+     and with the PyTorch epilogue after the coefficients;
   5. K3 (count sweep) and K4 (hot-row extraction) against their plain
-     versions at N=100,000 hashes with planted clusters (sim 31 and 40),
-     and the edge search against the brute-force oracle at N=4,096;
+     versions at N=100,000 hashes with planted clusters (sim 31 and 40);
+     K4 also on one padded tile of 32 rows, on a chunk of late rows (the
+     tiles under the diagonal are skipped), on low-confidence hot rows,
+     and at N=3,000 for both hash widths and variant counts; the edge
+     search's wall split into K3, K4, compaction and host assembly; and
+     the edge search against the brute-force oracle at N=4,096;
   6. K6 (int8 tensor-core count sweep) against K3 and its plain
      version on phase 5's N=100,000 hashes, K6 ms beside K3 ms; then K3
-     against K6 at N=1,000,000 x 8 variants, sim 40, and the edge search
-     there against a host oracle on a sample of rows;
+     against K6 at N=1,000,000 x 8 variants, sim 40, K4's launches over
+     that input's hot rows, and the edge search there, its wall split by
+     stage, against a host oracle on a sample of rows;
   7. K5 (column restack) against its plain version, bit for bit, at
      W = 128, 256, 288, beside one PyTorch permute-and-copy;
   8. demosaic: the port's RAW pipeline (plain PyTorch, no kernel) on
@@ -317,6 +325,65 @@ def planted_hashes(n, clusters, seed):
     return np.ascontiguousarray(var[:, 0]), var, low
 
 
+def small_planted(n, v, nbytes, seed):
+    """Random hashes of nbytes with v variants (slot 0 = the hash) and
+    planted exact, near and variant pairs, some of them low quality."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    var = rng.integers(0, 256, (n, v, nbytes), dtype=np.uint8)
+    low = np.zeros(n, dtype=bool)
+    for c, (i, j) in enumerate(rng.integers(0, n, (n // 40, 2))):
+        var[j, 0] = var[i, c % v]
+        if c % 3 == 1:
+            var[j, 0, c % nbytes] ^= np.uint8(3)
+        if c % 11 == 5:
+            low[[i, j]] = True
+    return np.ascontiguousarray(var[:, 0]), var, low
+
+
+def hot_row_inputs(var_bits, low_d, rows, n, pad_to=None):
+    """K4's operands for hot rows `rows` (a device index tensor), padded
+    as the edge search pads them: slots past the rows point at row n - 1
+    with qidx = n and the low flag set, which keeps them inert."""
+    import torch
+
+    dev = var_bits.device
+    m = len(rows)
+    mq = pad_to or -(-m // 32) * 32
+    ridx = torch.full((mq,), n - 1, dtype=torch.int64, device=dev)
+    qidx = torch.full((mq, 1), n, dtype=torch.int32, device=dev)
+    qlow = torch.ones((mq, 1), dtype=torch.int32, device=dev)
+    ridx[:m] = rows
+    qidx[:m, 0] = rows.to(torch.int32)
+    qlow[:m] = low_d[rows]
+    return var_bits.index_select(1, ridx), var_bits[0], qlow, low_d, qidx
+
+
+def k4_against_plain(label, var_bits, low_d, rows, n, sim, pad_to=None):
+    """K4's masks for hot rows `rows` and their pad slots against the
+    plain version's, byte for byte; returns the number of match bits."""
+    import numpy as np
+    import torch
+
+    from rupphash_tpu_torch.ops import hamming_cuda
+
+    args = hot_row_inputs(var_bits, low_d, rows, n, pad_to)
+    km = hamming_cuda.extract_rows_packed(*args, sim=sim, n_total=n)
+    pm = hamming_cuda.extract_rows_packed_plain(*args, sim=sim, n_total=n)
+    torch.cuda.synchronize()
+    check(torch.equal(km, pm), f"K4 {label}: masks differ from the plain "
+          "version's")
+    check(int(km[len(rows):].sum()) == 0, f"K4 {label}: a pad slot has a "
+          "match")
+    return int(np.unpackbits(km.cpu().numpy()).sum())
+
+
+def stage_split(stats) -> str:
+    return ", ".join(f"{k} {v * 1e3:.1f} ms"
+                     for k, v in stats["stage_s"].items())
+
+
 def phase_hamming(dev):
     import numpy as np
     import torch
@@ -391,6 +458,40 @@ def phase_hamming(dev):
         if sim == 40:
             res["k3"].update(ms=k3_ms, plain_ms=k3_plain, **k3_bnd)
             res["k4"].update(ms=k4_ms, plain_ms=k4_plain, **k4_bnd)
+            # K4's corners on the same input: one padded tile, late rows
+            # (their first base tile is far from tile 0), low-quality rows
+            late = hot[hot > n // 2][:200]
+            lowq = hot[low_d[hot, 0] != 0][:40]
+            check(len(late) > 64 and int(late[0]) > 128 and len(lowq) > 0,
+                  "the planted input lacks late or low-quality hot rows")
+            bits = [k4_against_plain("one padded tile", var_bits, low_d,
+                                     hot[:20], n, sim, pad_to=32),
+                    k4_against_plain("late rows", var_bits, low_d, late, n,
+                                     sim, pad_to=224),
+                    k4_against_plain("low-quality rows", var_bits, low_d,
+                                     lowq, n, sim, pad_to=64)]
+            phase("k3k4", f"N={n} sim={sim}: K4 masks identical to plain on "
+                  f"one tile of 20 rows + 12 pads ({bits[0]} bits), on "
+                  f"{len(late)} rows past row {int(late[0])} ({bits[1]} "
+                  f"bits) and on {len(lowq)} low-quality rows ({bits[2]} "
+                  f"bits); find_edges_fast split: {stage_split(stats)}")
+
+    for v, nbytes, sim in ((1, 32, 40), (8, 8, 10), (1, 8, 6)):
+        n3 = 3000
+        sb, sv, sl = small_planted(n3, v, nbytes, SEED + v + nbytes)
+        vb, ld, _, _ = hamming_cuda.prepare_inputs_device(sb, sv, sl)
+        kc = hamming_cuda.scan_row_counts(vb, ld, sim=sim, n_total=n3)
+        pc = hamming_cuda.scan_row_counts_plain(vb, ld, sim=sim, n_total=n3)
+        check(torch.equal(kc, pc), f"K3 V={v} {nbytes * 8} bits: counts "
+              "differ from plain")
+        hot3 = torch.nonzero(pc[:n3, 0])[:, 0]
+        bits = k4_against_plain(f"V={v} {nbytes * 8} bits", vb, ld, hot3, n3,
+                                sim)
+        check(bits == int(pc.sum()), f"K4 V={v} {nbytes * 8} bits: {bits} "
+              f"mask bits for {int(pc.sum())} counted matches")
+        phase("k3k4", f"N={n3} V={v} {nbytes * 8} bits sim={sim}: K3 counts "
+              f"and K4 masks identical to plain ({len(hot3)} hot rows, "
+              f"{bits} matches)")
 
     small = planted_hashes(4096, 200, SEED + 1)
     for sim in (31, 40):
@@ -411,23 +512,37 @@ def phase_k2(dev, batches):
 
     golden = pdq_torch.pdq_ref
     result = {"max_abs_err": 0.0}
-    # phase k1's batches, and 512 rows x 288 columns: the self-test's
-    # shape and K2's largest shared-memory setup
-    tall = textured_lumas(torch.Generator().manual_seed(SEED + 2), 256, 512,
-                          288, dev)
-    for lumas in (*batches, tall):
+    # phase k1's batches, 512 rows x 288 columns (the self-test's shape
+    # and K2's largest shared-memory setup), and batches of 1 and 257
+    gen = torch.Generator().manual_seed(SEED + 2)
+    tall = textured_lumas(gen, 256, 512, 288, dev)
+    one = textured_lumas(gen, 1, 288, 512, dev)
+    odd = textured_lumas(gen, 257, 288, 512, dev)
+    for lumas in (*batches, tall, one, odd):
         b, rows, cols = lumas.shape
         label = f"{cols}x{rows}"
         ops = pdq_hybrid.operators(rows, cols, dev)
+        before = pdq_hybrid.pdq_coeffs.launches
+        hyb = pdq_hybrid.pdq_hash_batch_hybrid(lumas)
+        check(pdq_hybrid.pdq_coeffs.launches == before + 1,
+              f"K2 {label}: the hybrid entry did not launch K2 once")
         kc, kq = pdq_hybrid.pdq_coeffs(lumas, *ops)
         pc, pq = pdq_hybrid.pdq_coeffs_plain(lumas, *ops)
-        hyb = pdq_hybrid.pdq_hash_batch_hybrid(lumas)
+        own = pdq_torch.dihedral_from_coeffs(hyb["coeffs"].reshape(-1, 16, 16))
         l_op, r_op = pdq_torch.linear_operators(rows, cols)
         k1 = pdq_cuda.pdq_hash(lumas, torch.from_numpy(l_op)[None].to(dev),
                                torch.from_numpy(r_op)[None].to(dev),
                                torch.zeros(b, dtype=torch.int32, device=dev),
                                ops[4])
         torch.cuda.synchronize()
+        check(torch.equal(hyb["coeffs"].view(torch.int32),
+                          kc.view(torch.int32))
+              and torch.equal(hyb["quality"].view(torch.int32),
+                              kq.view(torch.int32)),
+              f"K2 {label}: coefficients or quality change with the epilogue")
+        check(torch.equal(hyb["dihedral"], own), f"K2 {label}: the kernel's "
+              "dihedral hashes differ from dihedral_from_coeffs of its own "
+              "coefficients")
         dq = float((kq - pq).abs().max())
         dc = float((kc - pc).abs().max())
         check(dq <= 1e-6, f"K2 {label}: quality differs from plain by {dq}")
@@ -442,7 +557,8 @@ def phase_k2(dev, batches):
         dih = hyb["dihedral"].cpu().numpy()
         qual = hyb["quality"].cpu().numpy()
         lumas_np = lumas.cpu().numpy()
-        for i in range(16):
+        n_gold = min(16, b)
+        for i in range(n_gold):
             coeffs, _, quality = golden.pdq_from_luma(lumas_np[i])
             check([bytes(dih[i, v]) for v in range(8)]
                   == golden.dihedral_hashes(coeffs),
@@ -450,26 +566,45 @@ def phase_k2(dev, batches):
             check(abs(float(qual[i]) - quality) <= 1e-6,
                   f"K2 {label}: image {i} quality {qual[i]} vs {quality}")
         result["max_abs_err"] = max(result["max_abs_err"], dc)
-        ms, plain_ms = paired_ms(lambda: pdq_hybrid.pdq_coeffs(lumas, *ops),
-                                 lambda: pdq_hybrid.pdq_coeffs_plain(lumas,
-                                                                     *ops), 20)
-        hyb_ms = cuda_ms(lambda: pdq_hybrid.pdq_hash_batch_hybrid(lumas), 20)
-        phase("k2", f"{label} B={b}: dihedral identical to K1, 16/16 "
+        if b != 256:
+            phase("k2", f"{label} B={b}: fused dihedral identical to "
+                  f"dihedral_from_coeffs of its own coefficients and to K1, "
+                  f"{n_gold}/{n_gold} identical to the golden; vs plain max "
+                  f"|dquality| {dq} max |dcoeff| {dc}")
+            continue
+
+        def unfused():   # the earlier path: coefficients, then PyTorch's epilogue
+            c, _ = pdq_hybrid.pdq_coeffs(lumas, *ops)
+            return pdq_torch.dihedral_from_coeffs(c.reshape(-1, 16, 16))
+
+        ms, plain_ms = paired_ms(
+            lambda: pdq_hybrid.pdq_hash_batch_hybrid(lumas),
+            lambda: pdq_hybrid.pdq_hash_batch_hybrid_plain(lumas), 20)
+        front_ms = cuda_ms(lambda: pdq_hybrid.pdq_coeffs(lumas, *ops), 20)
+        unfused_ms = cuda_ms(unfused, 20)
+        phase("k2", f"{label} B={b}: fused dihedral identical to "
+              f"dihedral_from_coeffs of its own coefficients and to K1, 16/16 "
               f"identical to the golden; vs plain max |dquality| {dq} max "
-              f"|dcoeff| {dc}; kernel {ms:.4f} ms ({b / ms * 1e3:.0f} img/s), "
-              f"plain {plain_ms:.4f} ms, plain/kernel {plain_ms / ms:.2f}; "
-              f"with the dihedral epilogue {hyb_ms:.4f} ms")
-        # stage 1 on the bf16 tensor cores (three split terms of L),
-        # stage 2 and the D16 products in fp32 FMA; the dihedral epilogue
-        # is PyTorch's, outside the kernel
+              f"|dcoeff| {dc}; hybrid entry, one launch with the epilogue in "
+              f"the kernel {ms:.4f} ms ({b / ms * 1e3:.0f} img/s), plain "
+              f"{plain_ms:.4f} ms, plain/kernel {plain_ms / ms:.2f}; "
+              f"coefficients and quality only {front_ms:.4f} ms; that plus "
+              f"the PyTorch epilogue {unfused_ms:.4f} ms")
+        # stage 1 on the bf16 tensor cores (three split terms of L) plus
+        # one fp32 add per MMA output (the exact-sum rule), stage 2 and the
+        # D16 products in fp32 FMA; the median sorts are not counted
+        adds = b * 3 * 64 * cols * rows / 16
         bnd = bound(b * 2 * 3 * 64 * rows * cols / BF16_FLOPS
-                    + b * 2 * (64 * 64 * cols + 16 * 64 * 64 + 16 * 16 * 64)
-                    / FP32_FLOPS,
-                    lumas.numel() + 4 * 64 * (rows + cols) + b * 4 * 257)
+                    + (b * 2 * (64 * 64 * cols + 16 * 64 * 64 + 16 * 16 * 64)
+                       + 2 * adds) / FP32_FLOPS,
+                    lumas.numel() + 4 * 64 * (rows + cols)
+                    + b * (4 * 257 + 8 * 32))
         phase("k2", f"{label}: bound {bnd['bound_ms']:.4f} ms "
-              f"({bnd['bound_by']}), share {bnd['bound_ms'] / ms:.3f}")
+              f"({bnd['bound_by']}; {adds:.3g} exact-sum adds counted at "
+              f"{FP32_FLOPS / 2:.3g} add/s), share {bnd['bound_ms'] / ms:.3f}")
         if rows == 288:
-            result.update(ms=ms, plain_ms=plain_ms, **bnd)
+            result.update(ms=ms, plain_ms=plain_ms, front_ms=front_ms,
+                          unfused_ms=unfused_ms, **bnd)
     return result
 
 
@@ -552,7 +687,25 @@ def phase_k3_1m(dev, n=1_000_000):
         pm1, low_d, sim=sim, n_total=n), 1)
     del pm1
     bnd = sweep_bound(n, 8, 256, var_bits.numel() + 4 * low_d.numel())
-    ei, ej = hamming.find_edges_fast(base, var, low, similarity=sim)
+    # K4 over this input's hot rows, chunked as the edge search chunks them
+    hot = torch.nonzero(k3[:n, 0])[:, 0]
+    chunk = hamming._default_row_chunk(npad)
+    launches = [hot_row_inputs(var_bits, low_d, hot[c0:c0 + chunk], n)
+                for c0 in range(0, len(hot), chunk)]
+
+    def k4_all():
+        for args in launches:
+            hamming_cuda.extract_rows_packed(*args, sim=sim, n_total=n)
+
+    k4_ms = cuda_ms(k4_all, 2)
+    hot_np = hot.cpu().numpy()
+    k4_bnd = bound(float((n - 1 - hot_np).sum()) * 8 * 2 * 256 / INT8_OPS,
+                   len(launches) * var_bits[0].numel()
+                   + len(hot) * (8 * 32 + npad // 8))
+    del launches
+    torch.cuda.empty_cache()
+    ei, ej, stats = hamming.find_edges_fast(base, var, low, similarity=sim,
+                                            return_stats=True)
     check(len(ei) == int(k3.sum()), "N=1M: edges vs K3 counts")
     rng = np.random.default_rng(SEED)
     sample = sorted(set(ei[rng.integers(0, len(ei), 24)].tolist())
@@ -565,11 +718,17 @@ def phase_k3_1m(dev, n=1_000_000):
     phase("k3-1m", f"N={n} V=8 sim={sim}: K3 counts identical to K6 "
           f"({int(k3.sum())} matches); K3 {k3_ms:.3f} ms vs K6 {k6_ms:.3f} ms; "
           f"K3 bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), share "
-          f"{bnd['bound_ms'] / k3_ms:.3f}; find_edges_fast {len(ei)} edges, "
+          f"{bnd['bound_ms'] / k3_ms:.3f}; K4 {k4_ms:.3f} ms for "
+          f"{len(hot)} hot rows in {-(-len(hot) // chunk)} launches of up to "
+          f"{chunk} rows (each mask's clear included), bound "
+          f"{k4_bnd['bound_ms']:.3f} ms ({k4_bnd['bound_by']}); "
+          f"find_edges_fast {len(ei)} edges, split: {stage_split(stats)}; "
           f"{len(sample)} sampled rows ({len(want)} edges) equal to the host "
           f"oracle; phase {time.perf_counter() - t0:.1f} s")
-    return {"k3_1m_ms": k3_ms, "k6_1m_ms": k6_ms,
-            "k3_1m_bound_ms": bnd["bound_ms"]}
+    return ({"k3_1m_ms": k3_ms, "k6_1m_ms": k6_ms,
+             "k3_1m_bound_ms": bnd["bound_ms"]},
+            {"k4_1m_ms": k4_ms, "k4_1m_launches": -(-len(hot) // chunk),
+             "k4_1m_bound_ms": k4_bnd["bound_ms"]})
 
 
 def phase_k5(dev):
@@ -1317,7 +1476,9 @@ def main() -> int:
     k6 = phase_k6(inputs)
     del batches, inputs
     torch.cuda.empty_cache()
-    hm["k3"].update(phase_k3_1m(dev))
+    k3_1m, k4_1m = phase_k3_1m(dev)
+    hm["k3"].update(k3_1m)
+    hm["k4"].update(k4_1m)
     torch.cuda.empty_cache()
     k5 = phase_k5(dev)
     phase_demosaic(dev)

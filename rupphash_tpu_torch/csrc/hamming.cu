@@ -49,10 +49,24 @@
 // fills two such panels.  The k order inside a row is free as long as
 // query and base use the same one: chunk c holds bits [16c, 16c + 16).
 //
-// K4 layout: each thread owns one output byte, i.e. 8 base rows held in
-// registers; a block stages 32 hot query rows in shared memory and
-// writes their bytes row by row, so neighbouring threads store
-// neighbouring bytes.  XOR + popcount on packed u32 words.
+// K4 is the same GEMM with another epilogue.  What bounds it: 2 * nbits
+// int8 operations per (hot row, later base row, variant), 0.25 ms for
+// 1,794 hot rows at N=100k; the mask it writes is almost all zeros.  Its
+// design on top of K3's tiles:
+//
+//   * the query tile is 64 gathered hot rows (their variants, their own
+//     row indices qidx and low flags), the base side its own pointer;
+//   * work item = (query tile, run of base tiles); the first base tile of
+//     a query tile is the one holding its smallest live qidx + 1, derived
+//     in the kernel, so no tile wholly at or under the diagonal is
+//     computed (tests/test_torch_extract.py walks the same items on the
+//     host); persistent blocks take items from a
+//     counter;
+//   * epilogue in registers: max over variants, threshold, j > qidx,
+//     range masks, then the predicate bits of a row's 128 columns, which
+//     lie two per lane in the four lanes of a quad, are gathered by
+//     shuffles into one 32-bit word per lane (bit j % 8 of byte j / 8)
+//     and stored only where nonzero: the wrapper clears the mask first.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -207,6 +221,73 @@ __device__ __forceinline__ void bar_sync_group(int group) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "n"(128) : "memory");
 }
 
+// The run of base tiles [b_begin, b_end) of one work item against the
+// query tile resident in s_q: warpgroup `group` takes every other tile,
+// expands it into its own buffer, takes the dots of all NV variants and
+// hands epi(best, b0) the max over variants for base rows b0 .. b0 + 127
+// (best[4i + e]: row r0, column 8i + cq + e; best[4i + 2 + e]: row r1).
+// Shared by K3 and K4.
+template <int NV, int NB, class Epi>
+__device__ __forceinline__ void sweep_base_tiles(const uint8_t* s_q, uint8_t* my_b,
+                                                 int32_t* my_blow,
+                                                 const uint8_t* __restrict__ base,
+                                                 const int32_t* __restrict__ blow,
+                                                 int b_begin, int b_end, int group, int t,
+                                                 Epi epi) {
+  using S = SweepShape<NB>;
+  const uint32_t q_addr = smem_addr(s_q), b_addr = smem_addr(my_b);
+  int b0 = b_begin + group * kBRows;
+  PackedRow<NB> next{};
+  int next_low = 1;
+  if (b0 < b_end) {
+    next = load_row<NB>(base + static_cast<size_t>(b0 + t) * NB);
+    next_low = blow[b0 + t];
+  }
+  for (; b0 < b_end; b0 += kGroups * kBRows) {
+    bar_sync_group(group);   // this group's previous tile is consumed
+    store_row<NB>(my_b, kBRows, t, next);
+    my_blow[t] = next_low;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync_group(group);
+
+    // prefetch the group's next base tile while the tensor cores run
+    const int bn = b0 + kGroups * kBRows;
+    if (bn < b_end) {
+      next = load_row<NB>(base + static_cast<size_t>(bn + t) * NB);
+      next_low = blow[bn + t];
+    }
+
+    int best[64];
+    int acc0[64], acc1[64];
+    mma_variant<NB>(acc0, q_addr, b_addr);
+    if constexpr (NV == 1) {
+      wgmma_wait<0>();
+      fold_max(best, acc0, true);
+    } else {
+#pragma unroll
+      for (int v = 1; v < NV; ++v) {
+        const uint32_t qv = q_addr + v * S::kPanels * kPanelQ;
+        if (v & 1) {
+          mma_variant<NB>(acc1, qv, b_addr);
+          wgmma_wait<1>();
+          fold_max(best, acc0, v == 1);
+        } else {
+          mma_variant<NB>(acc0, qv, b_addr);
+          wgmma_wait<1>();
+          fold_max(best, acc1, false);
+        }
+      }
+      wgmma_wait<0>();
+      if ((NV - 1) & 1) {
+        fold_max(best, acc1, false);
+      } else {
+        fold_max(best, acc0, false);
+      }
+    }
+    epi(best, b0);
+  }
+}
+
 template <int NV, int NB>
 __global__ void __launch_bounds__(kSweepThreads, 1)
 hamming_rowcount_kernel(const uint8_t* __restrict__ packed,  // (NV, npad, NB)
@@ -262,71 +343,21 @@ hamming_rowcount_kernel(const uint8_t* __restrict__ packed,  // (NV, npad, NB)
     const int i0 = q0 + r0, i1 = q0 + r1;
     const int ql0 = s_qlow[r0], ql1 = s_qlow[r1];
     int cnt0 = 0, cnt1 = 0;
-    const uint32_t q_addr = smem_addr(s_q), b_addr = smem_addr(my_b);
-
-    int b0 = b_begin + group * kBRows;
-    PackedRow<NB> next{};
-    int next_low = 1;
-    if (b0 < b_end) {
-      next = load_row<NB>(packed + static_cast<size_t>(b0 + t) * NB);
-      next_low = low[b0 + t];
-    }
-    for (; b0 < b_end; b0 += kGroups * kBRows) {
-      bar_sync_group(group);   // this group's previous tile is consumed
-      store_row<NB>(my_b, kBRows, t, next);
-      my_blow[t] = next_low;
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      bar_sync_group(group);
-
-      // prefetch the group's next base tile while the tensor cores run
-      const int bn = b0 + kGroups * kBRows;
-      if (bn < b_end) {
-        next = load_row<NB>(packed + static_cast<size_t>(bn + t) * NB);
-        next_low = low[bn + t];
-      }
-
-      int best[64];
-      int acc0[64], acc1[64];
-      mma_variant<NB>(acc0, q_addr, b_addr);
-      if constexpr (NV == 1) {
-        wgmma_wait<0>();
-        fold_max(best, acc0, true);
-      } else {
+    sweep_base_tiles<NV, NB>(
+        s_q, my_b, my_blow, packed, low, b_begin, b_end, group, t, [&](int (&best)[64], int b0) {
 #pragma unroll
-        for (int v = 1; v < NV; ++v) {
-          const uint32_t qv = q_addr + v * S::kPanels * kPanelQ;
-          if (v & 1) {
-            mma_variant<NB>(acc1, qv, b_addr);
-            wgmma_wait<1>();
-            fold_max(best, acc0, v == 1);
-          } else {
-            mma_variant<NB>(acc0, qv, b_addr);
-            wgmma_wait<1>();
-            fold_max(best, acc1, false);
+          for (int i = 0; i < 16; ++i) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int jj = 8 * i + cq + e;
+              const int j = b0 + jj;
+              const int bl = my_blow[jj];
+              const bool jin = j < n_total;
+              cnt0 += (best[4 * i + e] >= ((ql0 | bl) ? nbits : need_ok)) & (j > i0) & jin;
+              cnt1 += (best[4 * i + 2 + e] >= ((ql1 | bl) ? nbits : need_ok)) & (j > i1) & jin;
+            }
           }
-        }
-        wgmma_wait<0>();
-        if ((NV - 1) & 1) {
-          fold_max(best, acc1, false);
-        } else {
-          fold_max(best, acc0, false);
-        }
-      }
-
-      // best[4i + e]: row r0, column 8i + cq + e; best[4i + 2 + e]: row r1.
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int jj = 8 * i + cq + e;
-          const int j = b0 + jj;
-          const int bl = my_blow[jj];
-          const bool jin = j < n_total;
-          cnt0 += (best[4 * i + e] >= ((ql0 | bl) ? nbits : need_ok)) & (j > i0) & jin;
-          cnt1 += (best[4 * i + 2 + e] >= ((ql1 | bl) ? nbits : need_ok)) & (j > i1) & jin;
-        }
-      }
-    }
+        });
     cnt0 += __shfl_xor_sync(0xffffffffu, cnt0, 1);
     cnt0 += __shfl_xor_sync(0xffffffffu, cnt0, 2);
     cnt1 += __shfl_xor_sync(0xffffffffu, cnt1, 1);
@@ -360,114 +391,143 @@ int launch_rowcount(int grid, cudaStream_t st, const void* packed, const void* l
 // K4
 // ----------------------------------------------------------------------------
 
-constexpr int kExtractThreads = 128;
-constexpr int kExtractQueries = 32;
-
-// One hash as NW words in registers; loads are 16 bytes (NW % 4 == 0)
-// or 8 bytes wide, so every hash row must be aligned to its size.
-template <int NW>
-struct Hash {
-  uint32_t w[NW];
-};
-
-template <int NW>
-__device__ __forceinline__ Hash<NW> load_hash(const uint32_t* p) {
-  Hash<NW> h;
-  if constexpr (NW % 4 == 0) {
+// A thread's 32 predicate bits of one accumulator row (bit 2i + e: column
+// 8i + cq + e) -> the row's 16 mask bytes, four per lane: the word of
+// lane q of the quad holds bytes 4q .. 4q + 3, bit c % 8 of byte c / 8
+// for column c.  tests/test_torch_extract.py holds the same arithmetic,
+// in numpy, against packbits.
+__device__ __forceinline__ uint32_t pack_quad(uint32_t w, int q) {
+  uint32_t mine = 0;
 #pragma unroll
-    for (int k = 0; k < NW / 4; ++k) {
-      const uint4 v = reinterpret_cast<const uint4*>(p)[k];
-      h.w[4 * k] = v.x;
-      h.w[4 * k + 1] = v.y;
-      h.w[4 * k + 2] = v.z;
-      h.w[4 * k + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < NW / 2; ++k) {
-      const uint2 v = reinterpret_cast<const uint2*>(p)[k];
-      h.w[2 * k] = v.x;
-      h.w[2 * k + 1] = v.y;
-    }
+  for (int d = 0; d < 4; ++d) {
+    const uint32_t x = (w >> (8 * d)) & 0xFFu;   // blocks 4d .. 4d + 3, two bits each
+    uint32_t s = ((x | (x << 6) | (x << 12) | (x << 18)) & 0x03030303u) << (2 * q);
+    s |= __shfl_xor_sync(0xffffffffu, s, 1);
+    s |= __shfl_xor_sync(0xffffffffu, s, 2);
+    if (q == d) mine = s;
   }
-  return h;
+  return mine;
 }
 
-template <int NW>
-__device__ __forceinline__ int hamming(const Hash<NW>& a, const Hash<NW>& b) {
-  int d = 0;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) d += __popc(a.w[k] ^ b.w[k]);
-  return d;
-}
-
-template <int NV, int NW>
-__global__ void __launch_bounds__(kExtractThreads)
-hamming_extract_kernel(const uint32_t* __restrict__ qwords,  // (NV, mq, NW)
-                       const uint32_t* __restrict__ bwords,  // (npad, NW)
-                       const int32_t* __restrict__ qlow,     // (mq,)
-                       const int32_t* __restrict__ blow,     // (npad,)
-                       const int32_t* __restrict__ qidx,     // (mq,)
+template <int NV, int NB>
+__global__ void __launch_bounds__(kSweepThreads, 1)
+hamming_extract_kernel(const uint8_t* __restrict__ qbits,   // (NV, mq, NB)
+                       const uint8_t* __restrict__ base,    // (npad, NB)
+                       const int32_t* __restrict__ qlow,    // (mq,)
+                       const int32_t* __restrict__ blow,    // (npad,)
+                       const int32_t* __restrict__ qidx,    // (mq,)
                        int mq, int npad, int n_total, int sim,
-                       uint8_t* __restrict__ out) {          // (mq, npad / 8)
-  __shared__ __align__(16) uint32_t s_q[kExtractQueries][NV][NW];
-  __shared__ int32_t s_qlow[kExtractQueries];
-  __shared__ int32_t s_qidx[kExtractQueries];
-  const int m0 = blockIdx.y * kExtractQueries;
-  for (int e = threadIdx.x; e < kExtractQueries * NV * NW; e += kExtractThreads) {
-    const int m = e / (NV * NW), v = (e / NW) % NV, k = e % NW;
-    s_q[m][v][k] = (m0 + m < mq) ? qwords[(static_cast<size_t>(v) * mq + m0 + m) * NW + k] : 0u;
-  }
-  for (int e = threadIdx.x; e < kExtractQueries; e += kExtractThreads) {
-    s_qlow[e] = (m0 + e < mq) ? qlow[m0 + e] : 1;
-    s_qidx[e] = (m0 + e < mq) ? qidx[m0 + e] : n_total;
-  }
-  __syncthreads();
+                       int item_tiles, int runs_per_tile, int n_items,
+                       int* __restrict__ next_item,
+                       uint8_t* __restrict__ out) {         // (mq, npad / 8), zeroed
+  using S = SweepShape<NB>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* s_q = smem;                                         // NV x kPanels x kPanelQ
+  uint8_t* s_b = s_q + NV * S::kPanels * kPanelQ;              // kGroups x kPanels x kPanelB
+  int32_t* s_qlow = reinterpret_cast<int32_t*>(s_b + kGroups * S::kPanels * kPanelB);
+  int32_t* s_blow = s_qlow + kQRows;                           // kGroups x kBRows
+  int32_t* s_qidx = s_blow + kGroups * kBRows;                 // kQRows
+  int* s_item = s_qidx + kQRows;
+  int* s_min = s_item + 1;
 
+  const int tid = threadIdx.x;
+  const int group = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const int quad = lane & 3, cq = 2 * quad;
+  uint8_t* my_b = s_b + group * S::kPanels * kPanelB;
+  int32_t* my_blow = s_blow + group * kBRows;
+  const int nbits = NB * 8;
+  const int need_ok = nbits - 2 * sim;
   const int stride = npad / 8;
-  const int col = blockIdx.x * kExtractThreads + threadIdx.x;
-  if (col >= stride) return;
-  const int j0 = col * 8;
-  Hash<NW> b[8];
-  int blow_bits = 0;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    b[r] = load_hash<NW>(bwords + static_cast<size_t>(j0 + r) * NW);
-    blow_bits |= (blow[j0 + r] != 0) << r;
-  }
-  const int mend = min(kExtractQueries, mq - m0);
-  for (int m = 0; m < mend; ++m) {
-    int dmin[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) dmin[r] = 32 * NW;
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const Hash<NW> a = load_hash<NW>(s_q[m][v]);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) dmin[r] = min(dmin[r], hamming<NW>(a, b[r]));
+  const int n_live = n_total < npad ? n_total : npad;
+  const int b_last = (n_live + kBRows - 1) / kBRows * kBRows;
+  constexpr int kInert = 0x7fffffff;   // no j lies beyond it
+
+  for (;;) {
+    __syncthreads();   // the previous item is finished everywhere
+    if (tid == 0) {
+      *s_item = atomicAdd(next_item, 1);
+      *s_min = kInert;
     }
-    const int qi = s_qidx[m];
-    const bool ql = s_qlow[m] != 0;
-    unsigned byte = 0;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int j = j0 + r;
-      const int thr = (ql || ((blow_bits >> r) & 1)) ? 0 : sim;
-      const bool bit = dmin[r] <= thr && j > qi && j < n_total && qi < n_total;
-      byte |= static_cast<unsigned>(bit) << r;
+    __syncthreads();
+    const int it = *s_item;
+    if (it >= n_items) break;
+    const int m0 = it / runs_per_tile * kQRows, run = it % runs_per_tile;
+    if (tid < kQRows) {
+      const int m = m0 + tid;
+      int qi = m < mq ? qidx[m] : n_total;
+      qi = qi < n_total ? (qi < -1 ? -1 : qi) : kInert;   // rows at or past n_total are inert
+      s_qidx[tid] = qi;
+      s_qlow[tid] = m < mq ? qlow[m] : 1;
+      if (qi != kInert) atomicMin(s_min, qi);
     }
-    out[static_cast<size_t>(m0 + m) * stride + col] = static_cast<uint8_t>(byte);
+    __syncthreads();
+    // the first base tile that holds a j > qidx of any row of the tile
+    const int q_min = *s_min;
+    if (q_min == kInert) continue;
+    const int b_begin = (q_min + 1) / kBRows * kBRows + run * item_tiles * kBRows;
+    if (b_begin >= b_last) continue;
+    const int b_end = min(b_begin + item_tiles * kBRows, b_last);
+
+    for (int e = tid; e < NV * kQRows; e += kSweepThreads) {
+      const int v = e / kQRows, r = e % kQRows;
+      PackedRow<NB> row{};
+      if (m0 + r < mq)
+        row = load_row<NB>(qbits + (static_cast<size_t>(v) * mq + m0 + r) * NB);
+      store_row<NB>(s_q + v * S::kPanels * kPanelQ, kQRows, r, row);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    const int i0 = s_qidx[r0], i1 = s_qidx[r1];
+    const int ql0 = s_qlow[r0], ql1 = s_qlow[r1];
+    uint8_t* out0 = out + static_cast<size_t>(m0 + r0) * stride + 4 * quad;
+    uint8_t* out1 = out + static_cast<size_t>(m0 + r1) * stride + 4 * quad;
+    sweep_base_tiles<NV, NB>(
+        s_q, my_b, my_blow, base, blow, b_begin, b_end, group, t, [&](int (&best)[64], int b0) {
+          uint32_t w0 = 0, w1 = 0;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int jj = 8 * i + cq + e;
+              const int j = b0 + jj;
+              const int bl = my_blow[jj];
+              const bool jin = j < n_total;
+              const uint32_t p0 =
+                  (best[4 * i + e] >= ((ql0 | bl) ? nbits : need_ok)) & (j > i0) & jin;
+              const uint32_t p1 =
+                  (best[4 * i + 2 + e] >= ((ql1 | bl) ? nbits : need_ok)) & (j > i1) & jin;
+              w0 |= p0 << (2 * i + e);
+              w1 |= p1 << (2 * i + e);
+            }
+          }
+          const uint32_t m0w = pack_quad(w0, quad), m1w = pack_quad(w1, quad);
+          if (m0w) *reinterpret_cast<uint32_t*>(out0 + b0 / 8) = m0w;
+          if (m1w) *reinterpret_cast<uint32_t*>(out1 + b0 / 8) = m1w;
+        });
   }
 }
 
-template <int NV, int NW>
-void launch_extract(dim3 grid, cudaStream_t st, const void* qwords, const void* bwords,
-                    const void* qlow, const void* blow, const void* qidx, int mq, int npad,
-                    int n_total, int sim, void* out) {
-  hamming_extract_kernel<NV, NW><<<grid, kExtractThreads, 0, st>>>(
-      static_cast<const uint32_t*>(qwords), static_cast<const uint32_t*>(bwords),
+template <int NV, int NB>
+int launch_extract(int grid, cudaStream_t st, const void* qbits, const void* base,
+                   const void* qlow, const void* blow, const void* qidx, int mq, int npad,
+                   int n_total, int sim, int item_tiles, int runs_per_tile, int n_items,
+                   void* next_item, void* out) {
+  constexpr int smem = sweep_smem_bytes<NV, NB>();
+  auto kernel = hamming_extract_kernel<NV, NB>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, kSweepThreads, smem, st>>>(
+      static_cast<const uint8_t*>(qbits), static_cast<const uint8_t*>(base),
       static_cast<const int32_t*>(qlow), static_cast<const int32_t*>(blow),
-      static_cast<const int32_t*>(qidx), mq, npad, n_total, sim, static_cast<uint8_t*>(out));
+      static_cast<const int32_t*>(qidx), mq, npad, n_total, sim, item_tiles, runs_per_tile,
+      n_items, static_cast<int*>(next_item), static_cast<uint8_t*>(out));
+  return 0;
 }
 
 }  // namespace
@@ -498,24 +558,33 @@ extern "C" int rupp_hamming_rowcount(const void* packed, const void* low, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int rupp_hamming_extract(const void* qwords, const void* bwords, const void* qlow,
+// out: (mq, npad / 8) u8, zeroed by the caller; npad a multiple of 128;
+// item_tiles: base tiles per work item; next_item: one zeroed int.  A
+// nonzero row's word is written only by the one tile that computes it.
+extern "C" int rupp_hamming_extract(const void* qbits, const void* base, const void* qlow,
                                     const void* blow, const void* qidx, int nv, int nbytes,
-                                    int mq, int npad, int n_total, int sim, void* out,
-                                    void* stream) {
-  if (npad % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int stride = npad / 8;
-  const dim3 grid((stride + kExtractThreads - 1) / kExtractThreads,
-                  (mq + kExtractQueries - 1) / kExtractQueries);
+                                    int mq, int npad, int n_total, int sim, int item_tiles,
+                                    void* next_item, void* out, void* stream) {
+  if (npad % kBRows != 0 || item_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_live = n_total < npad ? n_total : npad;
+  const int b_tiles = n_live > 0 ? (n_live + kBRows - 1) / kBRows : 0;
+  const int runs_per_tile = (b_tiles + item_tiles - 1) / item_tiles;
+  const int n_items = (mq + kQRows - 1) / kQRows * runs_per_tile;
   const auto st = static_cast<cudaStream_t>(stream);
-  if (mq > 0 && stride > 0) {
-    const int key = nv * 100 + nbytes;
-    switch (key) {
-      case 132: launch_extract<1, 8>(grid, st, qwords, bwords, qlow, blow, qidx, mq, npad, n_total, sim, out); break;
-      case 832: launch_extract<8, 8>(grid, st, qwords, bwords, qlow, blow, qidx, mq, npad, n_total, sim, out); break;
-      case 108: launch_extract<1, 2>(grid, st, qwords, bwords, qlow, blow, qidx, mq, npad, n_total, sim, out); break;
-      case 808: launch_extract<8, 2>(grid, st, qwords, bwords, qlow, blow, qidx, mq, npad, n_total, sim, out); break;
+  if (mq > 0 && n_items > 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int grid = n_items < sms ? n_items : sms;
+    int err = 0;
+    switch (nv * 100 + nbytes) {
+      case 132: err = launch_extract<1, 32>(grid, st, qbits, base, qlow, blow, qidx, mq, npad, n_total, sim, item_tiles, runs_per_tile, n_items, next_item, out); break;
+      case 832: err = launch_extract<8, 32>(grid, st, qbits, base, qlow, blow, qidx, mq, npad, n_total, sim, item_tiles, runs_per_tile, n_items, next_item, out); break;
+      case 108: err = launch_extract<1, 8>(grid, st, qbits, base, qlow, blow, qidx, mq, npad, n_total, sim, item_tiles, runs_per_tile, n_items, next_item, out); break;
+      case 808: err = launch_extract<8, 8>(grid, st, qbits, base, qlow, blow, qidx, mq, npad, n_total, sim, item_tiles, runs_per_tile, n_items, next_item, out); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
+    if (err) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -50,8 +50,9 @@
 //     (four per group g), then single rows 128 G4 + 32 s + ty, and
 //     columns 4 tx and 32 + 4 tx, so the 8 threads of a quarter warp
 //     share their row loads and read 128 contiguous bytes of columns;
-//   * epilogue: D16 is staged in shared memory (transposed), each thread
-//     of the D16 . buffer64 product runs four independent chains, and
+//   * epilogue (pdq_epilogue.cuh, shared with K2): D16 is staged in
+//     shared memory (transposed), each thread of the D16 . buffer64
+//     product runs four independent chains, and
 //     the four medians come from one bitonic sort network (36 steps of
 //     128 compare-exchanges per variant) instead of 256 x 256 rank
 //     comparisons; stage B's full chunks are unrolled.
@@ -67,16 +68,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "pdq_epilogue.cuh"
+
 namespace {
 
 // 8 warps, two on each scheduler; stage B and the epilogue give each
 // thread one of their 256 outputs
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 384;      // rows of the image per round
-constexpr int kTile = 64;          // buffer64 side
+constexpr int kTile = pdq_epilogue::kTile;   // buffer64 side
 constexpr int kChunk = 32;         // reduction depth staged per step
 constexpr int kXPieces = kChunk / 16;  // 16-byte u8 pieces per staged X row
-constexpr int kPad = kTile + 4;    // row pitch of buffer64
+constexpr int kPad = pdq_epilogue::kPad;     // row pitch of buffer64
 constexpr int kOpBytes = 2 * kChunk * kTile * 4;   // two staged R^T or L^T chunks
 
 // Shared memory, in bytes from the start: region A holds the stage-A
@@ -99,7 +102,7 @@ __host__ __device__ inline Layout make_layout(int rows) {
   l.x_u8 = l.x_t + kChunk * rows * 4;
   const int staging = l.x_u8 + 2 * rows * kChunk;
   const int xr = rows * kTile * 4;
-  const int scratch = (kTile * 16 + 4 * 256 + kTile * 16) * 4 + 4 * 256;
+  const int scratch = pdq_epilogue::kScratchBytes;
   int a = staging > xr ? staging : xr;
   a = a > scratch ? a : scratch;
   l.region_a = (a + 15) & ~15;
@@ -124,11 +127,6 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ int quality_term(float a, float b) {
-  const float d = __fsub_rn(a, b);
-  return static_cast<int>(truncf(fabsf(__fdiv_rn(__fmul_rn(d, 100.0f), 255.0f))));
 }
 
 // Stage A chunk: X rows [h0, h0 + rows) x columns [w0, w0 + kChunk) as u8,
@@ -317,118 +315,10 @@ pdq_hash_kernel(const uint8_t* __restrict__ lumas, int hp, int wp, int rows,
     __syncthreads();   // buffer64 holds this round; the stage-A region is free
   }
 
-  // Quality: every term is a small integer, so the sum is exact in any order.
-  int qs = 0;
-  for (int e = t; e < (kTile - 1) * kTile; e += blockDim.x) {
-    const int r = e / kTile, c = e % kTile;   // vertical neighbours
-    qs += quality_term(buf[r * kPad + c], buf[(r + 1) * kPad + c]);
-    const int r2 = e / (kTile - 1), c2 = e % (kTile - 1);   // horizontal
-    qs += quality_term(buf[r2 * kPad + c2], buf[r2 * kPad + c2 + 1]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) qs += __shfl_down_sync(0xffffffffu, qs, off);
-  if ((t & 31) == 0) atomicAdd(&s_qsum, qs);
-
-  // Epilogue scratch in the stage-A region: bd (64 x 16), the four sign
-  // variants sv[v][idx] (sorted in place), D16 transposed as d16t[q][c],
-  // bits.
-  float* bd = reinterpret_cast<float*>(smem);
-  float* sv = bd + kTile * 16;
-  float* d16t = sv + 4 * 256;
-  uint8_t* s_bits = reinterpret_cast<uint8_t*>(d16t + kTile * 16);
-  for (int e = t; e < kTile * 16; e += blockDim.x) d16t[e] = d16[(e % 16) * kTile + e / 16];
-  __syncthreads();
-
-  // bd[p][c] = sum_q buffer64[p][q] * D16[c][q], q ascending; thread
-  // t owns row p = t / 4 and columns c0 .. c0 + 3 (four chains).
-  {
-    const int p = t >> 2, c0 = (t & 3) * 4;
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll 8
-    for (int q = 0; q < kTile; ++q) {
-      const float b = buf[p * kPad + q];
-      const float4 d = *reinterpret_cast<const float4*>(d16t + q * 16 + c0);
-      a0 = fmaf(b, d.x, a0);
-      a1 = fmaf(b, d.y, a1);
-      a2 = fmaf(b, d.z, a2);
-      a3 = fmaf(b, d.w, a3);
-    }
-    *reinterpret_cast<float4*>(bd + p * 16 + c0) = make_float4(a0, a1, a2, a3);
-  }
-  __syncthreads();
-  if (t == 0) {
-    quality[img] = fminf(__fdiv_rn(static_cast<float>(s_qsum), 90.0f), 1.0f);
-  }
-
-  // coeffs[r][c] = sum_p D16[r][p] * bd[p][c], p ascending; thread t owns
-  // idx r*16+c.  Sign variants [identity, neg cols, neg rows, neg
-  // both]: a mirror negates odd DCT frequencies (index + 1), i.e. even
-  // indices.
-  float4 mine;
-  {
-    const int r = t >> 4, c = t & 15;
-    float cf = 0.0f;
-#pragma unroll 16
-    for (int p = 0; p < kTile; ++p) cf = fmaf(d16t[p * 16 + r], bd[p * 16 + c], cf);
-    coeffs[static_cast<size_t>(img) * 256 + t] = cf;
-    const bool fr = (r & 1) == 0, fc = (c & 1) == 0;
-    mine = make_float4(cf, fc ? -cf : cf, fr ? -cf : cf, (fr != fc) ? -cf : cf);
-    sv[0 * 256 + t] = mine.x;
-    sv[1 * 256 + t] = mine.y;
-    sv[2 * 256 + t] = mine.z;
-    sv[3 * 256 + t] = mine.w;
-  }
-  __syncthreads();
-
-  // Lower median of each variant, the 128th smallest value: a bitonic
-  // sort of the four variants in place, thread t < 128 exchanging the
-  // pair (i, i ^ j) of each.  Ties may land in either order; equal
-  // values (a +0/-0 tie included) give the same bits.
-  for (int k = 2; k <= 256; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      if (t < 128) {
-        const int i = 2 * t - (t & (j - 1)), l = i + j;   // i has bit j clear
-        const bool up = (i & k) == 0;
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const float a = sv[v * 256 + i], b = sv[v * 256 + l];
-          if ((a > b) == up) {
-            sv[v * 256 + i] = b;
-            sv[v * 256 + l] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (t < 4) s_med[t] = sv[t * 256 + 127];
-  __syncthreads();
-  {
-    s_bits[0 * 256 + t] = mine.x > s_med[0];
-    s_bits[1 * 256 + t] = mine.y > s_med[1];
-    s_bits[2 * 256 + t] = mine.z > s_med[2];
-    s_bits[3 * 256 + t] = mine.w > s_med[3];
-  }
-  __syncthreads();
-
-  // Dihedral order (sign pattern, transposed): identity, rot90, rot180,
-  // rot270, mirror-x, mirror-y, transpose, anti-transpose.
-  {
-    const int kSign[8] = {0, 2, 3, 1, 1, 2, 0, 3};
-    const bool kTrans[8] = {false, true, false, true, false, false, true, true};
-    const int v = t >> 5, ob = t & 31;
-    const int sgn = kSign[v];
-    const bool tr = kTrans[v];
-    const int base = 8 * (31 - ob);
-    unsigned byte = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int o = base + j;
-      const int src = tr ? ((o & 15) * 16 + (o >> 4)) : o;
-      byte |= static_cast<unsigned>(s_bits[sgn * 256 + src]) << j;
-    }
-    dihedral[(static_cast<size_t>(img) * 8 + v) * 32 + ob] = static_cast<uint8_t>(byte);
-  }
+  // buffer64 is complete; the epilogue's scratch is the stage-A region
+  pdq_epilogue::finish_image<kThreads>(
+      t, buf, smem, &s_qsum, s_med, d16, dihedral + static_cast<size_t>(img) * 8 * 32,
+      quality + img, coeffs + static_cast<size_t>(img) * 256, [] { __syncthreads(); });
 }
 
 struct Launch {

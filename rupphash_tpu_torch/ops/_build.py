@@ -32,11 +32,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "rupp_pdq_hash": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "rupp_pdq_coeffs": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "rupp_pdq_coeffs": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "rupp_hamming_rowcount": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
                               _P],
-    "rupp_hamming_extract": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                             _P],
+    "rupp_hamming_extract": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _P, _P, _P],
     "rupp_hamming_rowcount_mma": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "rupp_restack": [_P, _I, _I, _I, _P, _P],
 }

@@ -6,12 +6,12 @@ versions and input preparation.
 K3 and K4 replace rupphash_tpu/ops/hamming_pallas.py::_rowcount_kernel
 and ::_extract_kernel.  Both take the hashes packed, as the (V, Npad,
 nbytes) u8 tensor the JAX package shipped to the device before
-unpacking it to +/-1 int8.  K3 expands the packed bits to +/-1 int8 in
-shared memory and takes the dots on the int8 tensor cores (wgmma); K4
-tests XOR + popcount on u32 words; both apply the TPU's predicate
-dot >= nbits - 2 * sim.  K6 replaces _prof_nz.py::_rowcount_kernel_dg
-and takes that kernel's own +/-1 int8 input.  Outputs keep the JAX
-layouts: per-row counts (Npad, 1) int32 and packed match masks (MQ,
+unpacking it to +/-1 int8.  Both expand the packed bits to +/-1 int8 in
+shared memory, take the dots on the int8 tensor cores (wgmma) and apply
+the TPU's predicate dot >= nbits - 2 * sim; K3 counts the matches of
+each row, K4 packs those of the hot rows into bitmasks.  K6 replaces
+_prof_nz.py::_rowcount_kernel_dg and takes that kernel's own +/-1 int8
+input.  Outputs keep the JAX layouts: per-row counts (Npad, 1) int32 and packed match masks (MQ,
 Npad / 8) u8 with bit j % 8 of byte j // 8.
 
 Rows pad to a multiple of ROW_ALIGN, K6's base tile (a multiple of K3's
@@ -33,6 +33,8 @@ SWEEP_QROWS = 64          # csrc/hamming.cu kQRows: query rows per K3 item
 SWEEP_BROWS = 128         # csrc/hamming.cu kBRows: base rows per K3 tile
 SWEEP_GROUPS = 2          # csrc/hamming.cu kGroups: warpgroups per K3 block
 SWEEP_ITEM_TILES = 64     # base tiles per K3 work item
+# base tiles per K4 work item: few query tiles, so shorter runs than K3's fill the card
+EXTRACT_ITEM_TILES = 32
 KERNEL_NBYTES = (8, 32)   # hash widths the kernels are built for (pHash, PDQ)
 KERNEL_VARIANTS = (1, 8)  # query variant counts the kernels are built for
 
@@ -316,19 +318,26 @@ def extract_rows_packed(q_bits, base_bits, qlow, blow, qidx, *, sim=40,
     if not q_bits.is_cuda:
         return extract_rows_packed_plain(q_bits, base_bits, qlow, blow, qidx,
                                          sim=sim, n_total=n_total)
-    if nbytes not in KERNEL_NBYTES or v not in KERNEL_VARIANTS:
-        raise ValueError(f"K4 takes (1|8, MQ, 8|32) u8, got "
-                         f"{tuple(q_bits.shape)}")
+    if (nbytes not in KERNEL_NBYTES or v not in KERNEL_VARIANTS
+            or npad % SWEEP_BROWS):
+        raise ValueError(f"K4 takes (1|8, MQ, 8|32) u8 against k*"
+                         f"{SWEEP_BROWS} base rows, got "
+                         f"{tuple(q_bits.shape)}, {npad}")
     if not all(t.is_contiguous() for t in (q_bits, base_bits, qlow, blow,
                                            qidx)):
         raise ValueError("K4 takes contiguous tensors")
-    out = torch.empty((mq, npad // 8), dtype=torch.uint8, device=q_bits.device)
-    err = _build.load().lib.rupp_hamming_extract(
-        q_bits.data_ptr(), base_bits.data_ptr(), qlow.data_ptr(),
-        blow.data_ptr(), qidx.data_ptr(), v, nbytes, mq, npad, int(n_total),
-        int(sim), out.data_ptr(), _build.stream_ptr(q_bits))
-    _build.check(err, "hamming_extract_kernel")
-    _build.count_launch(extract_rows_packed)
+    # cleared first: the kernel skips the tiles under the diagonal and
+    # stores only words with a match
+    out = torch.zeros((mq, npad // 8), dtype=torch.uint8, device=q_bits.device)
+    if mq and min(int(n_total), npad) > 0:
+        next_item = torch.zeros(1, dtype=torch.int32, device=q_bits.device)
+        err = _build.load().lib.rupp_hamming_extract(
+            q_bits.data_ptr(), base_bits.data_ptr(), qlow.data_ptr(),
+            blow.data_ptr(), qidx.data_ptr(), v, nbytes, mq, npad,
+            int(n_total), int(sim), EXTRACT_ITEM_TILES, next_item.data_ptr(),
+            out.data_ptr(), _build.stream_ptr(q_bits))
+        _build.check(err, "hamming_extract_kernel")
+        _build.count_launch(extract_rows_packed)
     return out
 
 

@@ -1,15 +1,16 @@
-"""K2: the hybrid PDQ front half (csrc/pdq_coeffs.cu) and its plain
-version.
+"""K2: the hybrid PDQ hasher (csrc/pdq_coeffs.cu) and its plain version.
 
 Counterpart of rupphash_tpu/ops/pdq_pallas.py's hybrid path
 (`_split3`, `_coeffs_kernel`, `_build_hybrid`, `pdq_hash_batch_hybrid`).
-The kernel maps u8 lumas to the 16x16 DCT coefficients and the quality;
-the float32 row operator L rides along as three bf16 terms (`split3`)
-so that the dominant product L . X runs on bf16 tensor cores while
-keeping L's full mantissa.  The median, dihedral variants and packing
-are pdq_torch.dihedral_from_coeffs, as the reference pairs its kernel
-with pdq_jax.dihedral_from_coeffs.  Same output contract as
-pdq_torch.pdq_hash_batch.
+The kernel maps u8 lumas to the 16x16 DCT coefficients, the quality
+and, when asked, the eight dihedral hashes; the float32 row operator L
+rides along as three bf16 terms (`split3`) so that the dominant product
+L . X runs on bf16 tensor cores (wgmma) while keeping L's full mantissa.
+The reference pairs its kernel with pdq_jax.dihedral_from_coeffs; here
+the median, the dihedral variants and the packing run in the kernel
+(the device code K1 runs, csrc/pdq_epilogue.cuh), and
+pdq_torch.dihedral_from_coeffs is their plain version.  Same output
+contract as pdq_torch.pdq_hash_batch.
 """
 
 from __future__ import annotations
@@ -86,52 +87,76 @@ def _check(lumas, l1, l2, l3, r_op, d16):
             raise ValueError(f"{name} must be contiguous")
 
 
-def pdq_coeffs(lumas, l1, l2, l3, r_op, d16):
-    """lumas (B, rows, cols) u8; l1..l3 (64, rows) bf16 (split3 of L);
-    r_op (64, cols) f32; d16 (16, 64) f32 -> (coeffs (B, 256) f32,
-    quality (B,) f32).  CUDA tensors launch K2; CPU tensors take the
-    plain version."""
-    _check(lumas, l1, l2, l3, r_op, d16)
-    if not lumas.is_cuda:
-        return pdq_coeffs_plain(lumas, l1, l2, l3, r_op, d16)
+def _launch(lumas, l1, l2, l3, r_t, d16, with_dihedral: bool):
+    """One launch of K2 on checked CUDA operands, R transposed to (cols,
+    64) as the kernel copies it: (coeffs, quality, dihedral or None)."""
     b, rows, cols = lumas.shape
     if rows > KERNEL_MAX_ROWS:
         raise ValueError(f"K2 takes at most {KERNEL_MAX_ROWS} rows, got {rows}")
-    coeffs = torch.empty((b, 256), dtype=torch.float32, device=lumas.device)
-    quality = torch.empty((b,), dtype=torch.float32, device=lumas.device)
+    dev = lumas.device
+    coeffs = torch.empty((b, 256), dtype=torch.float32, device=dev)
+    quality = torch.empty((b,), dtype=torch.float32, device=dev)
+    dihedral = (torch.empty((b, 8, 32), dtype=torch.uint8, device=dev)
+                if with_dihedral else None)
     err = _build.load().lib.rupp_pdq_coeffs(
         lumas.data_ptr(), b, rows, cols, l1.data_ptr(), l2.data_ptr(),
-        l3.data_ptr(), r_op.data_ptr(), d16.data_ptr(), coeffs.data_ptr(),
-        quality.data_ptr(), _build.stream_ptr(lumas))
+        l3.data_ptr(), r_t.data_ptr(), d16.data_ptr(), coeffs.data_ptr(),
+        quality.data_ptr(), dihedral.data_ptr() if with_dihedral else 0,
+        _build.stream_ptr(lumas))
     _build.check(err, "pdq_coeffs_kernel")
     _build.count_launch(pdq_coeffs)
-    return coeffs, quality
+    return coeffs, quality, dihedral
 
 
-pdq_coeffs.launches = 0
+def pdq_coeffs(lumas, l1, l2, l3, r_op, d16):
+    """lumas (B, rows, cols) u8; l1..l3 (64, rows) bf16 (split3 of L);
+    r_op (64, cols) f32; d16 (16, 64) f32 -> (coeffs (B, 256) f32,
+    quality (B,) f32).  CUDA tensors launch K2 (which then skips its
+    dihedral epilogue) after one small transposing copy of r_op; CPU
+    tensors take the plain version."""
+    _check(lumas, l1, l2, l3, r_op, d16)
+    if not lumas.is_cuda:
+        return pdq_coeffs_plain(lumas, l1, l2, l3, r_op, d16)
+    return _launch(lumas, l1, l2, l3, r_op.t().contiguous(), d16, False)[:2]
 
 
-def _finish(coeffs, quality) -> dict:
-    dihedral = pdq_torch.dihedral_from_coeffs(coeffs.reshape(-1, 16, 16))
+pdq_coeffs.launches = 0   # every launch of K2, with or without its epilogue
+
+
+def _finish(coeffs, quality, dihedral=None) -> dict:
+    if dihedral is None:
+        dihedral = pdq_torch.dihedral_from_coeffs(coeffs.reshape(-1, 16, 16))
     return {"hash": dihedral[:, 0, :], "dihedral": dihedral,
             "quality": quality, "coeffs": coeffs}
 
 
 def pdq_hash_batch_hybrid_plain(lumas) -> dict:
-    """pdq_hash_batch_hybrid through the plain version of K2, on the
-    tensor's device (numpy goes to the port's device)."""
+    """pdq_hash_batch_hybrid through the plain versions of K2 and its
+    epilogue, on the tensor's device (numpy goes to the port's device)."""
     planes = pdq_torch._as_device_u8(lumas)
     _, rows, cols = planes.shape
     return _finish(*pdq_coeffs_plain(planes,
                                      *operators(rows, cols, planes.device)))
 
 
+@functools.lru_cache(maxsize=16)
+def _operators_on(rows: int, cols: int, dev: torch.device) -> tuple:
+    """operators() kept on dev between batches, and R transposed."""
+    ops = operators(rows, cols, dev)
+    return ops, ops[3].t().contiguous()
+
+
 def pdq_hash_batch_hybrid(lumas) -> dict:
     """Hash a batch of same-shape u8 luma planes (B, rows, cols), numpy
-    (moved to the port's device) or a tensor (hashed where it lies):
-    K2's coefficients and quality, then the dihedral epilogue.  Same
-    output contract as pdq_torch.pdq_hash_batch.  The kernel takes any
-    batch size, so nothing is padded."""
+    (moved to the port's device) or a tensor (hashed where it lies): on
+    the card one launch of K2, its dihedral epilogue included, with the
+    shape's operators kept on the device between calls.  Same output
+    contract as pdq_torch.pdq_hash_batch.  The kernel takes any batch
+    size, so nothing is padded."""
     planes = pdq_torch._as_device_u8(lumas)
     _, rows, cols = planes.shape
-    return _finish(*pdq_coeffs(planes, *operators(rows, cols, planes.device)))
+    (l1, l2, l3, r_op, d16), r_t = _operators_on(rows, cols, planes.device)
+    _check(planes, l1, l2, l3, r_op, d16)
+    if not planes.is_cuda:
+        return _finish(*pdq_coeffs_plain(planes, l1, l2, l3, r_op, d16))
+    return _finish(*_launch(planes, l1, l2, l3, r_t, d16, True))

@@ -5,9 +5,12 @@
 Runs the same measurement in a fresh process of each checkout, in the
 order other, this, this, other, so that the two versions share the card
 and its power limit: K1 (`pdq_cuda.pdq_hash`) at B=256 for 288x512,
-240x320 and 512x288 (rows x columns) textured lumas, and K3
-(`hamming_cuda.scan_row_counts`) at N=100,000 hashes x 8 variants, sim
-40.  Each process builds its own checkout's kernels and draws the same
+240x320 and 512x288 (rows x columns) textured lumas; K2 on the 288x512
+batch, the kernel alone (`pdq_hybrid.pdq_coeffs`) and the hybrid entry
+(`pdq_hybrid.pdq_hash_batch_hybrid`); K3 (`hamming_cuda.scan_row_counts`)
+at N=100,000 hashes x 8 variants, sim 40; and K4
+(`hamming_cuda.extract_rows_packed`) over that input's hot rows, padded
+as the edge search pads them.  Each process builds its own checkout's kernels and draws the same
 inputs from one seed; a digest of the outputs shows that the two
 versions computed the same thing.  Prints one JSON line per run and a
 summary line of the mean times.  Needs a card (exit 3 without one).
@@ -28,7 +31,7 @@ _CHILD = r"""
 import hashlib, json
 import numpy as np
 import torch
-from rupphash_tpu_torch.ops import hamming_cuda, pdq_cuda, pdq_torch
+from rupphash_tpu_torch.ops import hamming_cuda, pdq_cuda, pdq_hybrid, pdq_torch
 
 dev = torch.device("cuda")
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -64,6 +67,18 @@ for rows, cols in ((288, 512), (240, 320), (512, 288)):
                             + res["quality"].cpu().numpy().tobytes())
     out[f"k1_{rows}x{cols}"] = {"ms": ms(lambda: pdq_cuda.pdq_hash(*args), 50),
                                 "digest": digest.hexdigest()[:16]}
+    if (rows, cols) == (288, 512):
+        ops = pdq_hybrid.operators(rows, cols, dev)
+        hyb = pdq_hybrid.pdq_hash_batch_hybrid(lumas)
+        digest = hashlib.sha256(hyb["dihedral"].cpu().numpy().tobytes()
+                                + hyb["quality"].cpu().numpy().tobytes())
+        quality = pdq_hybrid.pdq_coeffs(lumas, *ops)[1].cpu().numpy()
+        out["k2_kernel_288x512"] = {
+            "ms": ms(lambda: pdq_hybrid.pdq_coeffs(lumas, *ops), 50),
+            "digest": hashlib.sha256(quality.tobytes()).hexdigest()[:16]}
+        out["k2_entry_288x512"] = {
+            "ms": ms(lambda: pdq_hybrid.pdq_hash_batch_hybrid(lumas), 20),
+            "digest": digest.hexdigest()[:16]}
 n = 100_000
 base = rng.integers(0, 256, (n, 32), dtype=np.uint8)
 var = rng.integers(0, 256, (n, 8, 32), dtype=np.uint8)
@@ -76,6 +91,20 @@ counts = hamming_cuda.scan_row_counts(var_bits, low_d, sim=40, n_total=n)
 out["k3_100k"] = {"ms": ms(lambda: hamming_cuda.scan_row_counts(
     var_bits, low_d, sim=40, n_total=n), 5),
     "digest": hashlib.sha256(counts.cpu().numpy().tobytes()).hexdigest()[:16]}
+hot = torch.nonzero(counts[:n, 0])[:, 0]
+mq = -(-len(hot) // 32) * 32
+ridx = torch.full((mq,), n - 1, dtype=torch.int64, device=dev)
+qidx = torch.full((mq, 1), n, dtype=torch.int32, device=dev)
+qlow = torch.ones((mq, 1), dtype=torch.int32, device=dev)
+ridx[:len(hot)] = hot
+qidx[:len(hot), 0] = hot.to(torch.int32)
+qlow[:len(hot)] = low_d[hot]
+k4 = (var_bits.index_select(1, ridx), var_bits[0], qlow, low_d, qidx)
+mask = hamming_cuda.extract_rows_packed(*k4, sim=40, n_total=n)
+out[f"k4_{len(hot)}_rows_100k"] = {
+    "ms": ms(lambda: hamming_cuda.extract_rows_packed(*k4, sim=40, n_total=n),
+             10),
+    "digest": hashlib.sha256(mask.cpu().numpy().tobytes()).hexdigest()[:16]}
 print(json.dumps(out))
 """
 

@@ -88,6 +88,13 @@ def test_cuda_tensors_never_fall_back(dev, monkeypatch):
     with pytest.raises(_build.KernelBuildError):
         pdq_hybrid.pdq_coeffs(lumas, *pdq_hybrid.operators(64, 48, dev))
     with pytest.raises(_build.KernelBuildError):
+        pdq_hybrid.pdq_hash_batch_hybrid(lumas)
+    with pytest.raises(_build.KernelBuildError):
+        hamming_cuda.extract_rows_packed(
+            var_bits[:, :32].contiguous(), var_bits[0], low[:32], low,
+            torch.arange(32, dtype=torch.int32, device=dev)[:, None],
+            n_total=1000)
+    with pytest.raises(_build.KernelBuildError):
         restack.restack(torch.zeros((1, 64, 16), device=dev), 2)
 
 
@@ -345,3 +352,96 @@ def test_http_query_on_cuda_matches_host_oracle(dev, tmp_path):
             {"path": ix._paths[i], "distance": int(dist[i]),
              "index": int(rank[i])} for i in sel]
         assert got["matches"], "every query has planted matches"
+
+
+@pytest.mark.parametrize("nbytes", [8, 32])
+@pytest.mark.parametrize("v", [1, 8])
+def test_k4_skips_pads_and_packs_like_plain(dev, nbytes, v):
+    """The redesigned K4 (wgmma, tiles under the diagonal skipped, bits
+    packed from the accumulator layout): masks byte-identical to the
+    plain version on dense matches (a block of equal hashes sets many
+    bits of a row, in every position of a byte), on late rows with pad
+    slots, on unsorted rows, on low-confidence rows and on MQ = 32."""
+    rng = np.random.default_rng(10 * nbytes + v)
+    n = 3000
+    var = rng.integers(0, 256, (n, v, nbytes), dtype=np.uint8)
+    dup = rng.choice(n, 300, replace=False)
+    var[dup, 0] = var[dup[0], 0]                   # 300 equal hashes
+    var[dup[::3], 0, 0] ^= 1                       # a third one bit away
+    if v > 1:
+        var[5, 3] = var[2900, 0]
+    low = np.zeros(n, dtype=bool)
+    low[dup[::7]] = True
+    base = np.ascontiguousarray(var[:, 0])
+    var_bits, low_d, _, npad = hamming_cuda.prepare_inputs_device(base, var,
+                                                                  low)
+    sim = 1
+    pc = hamming_cuda.scan_row_counts_plain(var_bits, low_d, sim=sim,
+                                            n_total=n)
+    hot = torch.nonzero(pc[:n, 0])[:, 0]
+    assert len(hot) > 200
+    cases = {"all": hot, "late": hot[hot > 2000], "one tile": hot[:20],
+             "unsorted": hot[torch.randperm(len(hot), device=dev)][:100]}
+    for label, rows in cases.items():
+        m = len(rows)
+        mq = -(-m // 32) * 32
+        ridx = torch.full((mq,), n - 1, dtype=torch.int64, device=dev)
+        qidx = torch.full((mq, 1), n, dtype=torch.int32, device=dev)
+        qlow = torch.ones((mq, 1), dtype=torch.int32, device=dev)
+        ridx[:m] = rows
+        qidx[:m, 0] = rows.to(torch.int32)
+        qlow[:m] = low_d[rows]
+        args = (var_bits.index_select(1, ridx), var_bits[0], qlow, low_d, qidx)
+        before = hamming_cuda.extract_rows_packed.launches
+        km = hamming_cuda.extract_rows_packed(*args, sim=sim, n_total=n)
+        assert hamming_cuda.extract_rows_packed.launches == before + 1
+        pm = hamming_cuda.extract_rows_packed_plain(*args, sim=sim, n_total=n)
+        torch.cuda.synchronize()
+        assert torch.equal(km, pm), label
+        assert int(km[m:].sum()) == 0, label
+        if label == "all":
+            bits = np.unpackbits(km.cpu().numpy(), axis=1, bitorder="little")
+            assert int(bits.sum()) == int(pc.sum())
+    with pytest.raises(ValueError):   # base rows not in whole tiles of 128
+        hamming_cuda.extract_rows_packed(
+            args[0], var_bits[0, :1000].contiguous(), args[2],
+            low_d[:1000].contiguous(), args[4], sim=sim, n_total=n)
+
+
+@pytest.mark.parametrize("b", [1, 5, 257])
+@pytest.mark.parametrize("shape", [(288, 512), (240, 320), (512, 288),
+                                   (33, 501), (400, 100)])
+def test_k2_fused_epilogue_equals_its_plain_version_and_k1(dev, shape, b):
+    """The redesigned K2 (wgmma, one warpgroup per image, the dihedral
+    epilogue in the kernel): one launch; its hashes equal
+    dihedral_from_coeffs of its own coefficients; coefficients and
+    quality do not depend on whether the epilogue runs.  K1 sums in
+    another order (L . (X . R^T) against (L . X) . R^T), so a coefficient
+    within rounding of its median may fall on the other side: against K1
+    at most one image in 64 may differ, by at most 2 bits a variant."""
+    rng = np.random.default_rng(shape[0] + b)
+    small = torch.from_numpy(rng.integers(0, 256, (b, 1, 24, 32))
+                             .astype(np.float32)).to(dev)
+    lumas = torch.nn.functional.interpolate(
+        small, size=shape, mode="bilinear", align_corners=False
+    ).round().clamp(0, 255).to(torch.uint8)[:, 0].contiguous()
+    ops = pdq_hybrid.operators(*shape, dev)
+    before = pdq_hybrid.pdq_coeffs.launches
+    hyb = pdq_hybrid.pdq_hash_batch_hybrid(lumas)
+    assert pdq_hybrid.pdq_coeffs.launches == before + 1
+    kc, kq = pdq_hybrid.pdq_coeffs(lumas, *ops)
+    pc, pq = pdq_hybrid.pdq_coeffs_plain(lumas, *ops)
+    k1 = pdq_torch.pdq_hash_batch(lumas)
+    torch.cuda.synchronize()
+    assert torch.equal(hyb["coeffs"].view(torch.int32), kc.view(torch.int32))
+    assert torch.equal(hyb["quality"].view(torch.int32), kq.view(torch.int32))
+    assert torch.equal(hyb["dihedral"], pdq_torch.dihedral_from_coeffs(
+        hyb["coeffs"].reshape(-1, 16, 16)))
+    assert torch.equal(hyb["hash"], hyb["dihedral"][:, 0])
+    assert float((kq - pq).abs().max()) <= 1e-6
+    assert torch.allclose(kc, pc, rtol=1e-4, atol=0.5)
+    flipped = np.unpackbits((hyb["dihedral"] ^ k1["dihedral"]).cpu().numpy(),
+                            axis=2).sum(axis=2)            # (B, 8) bits apart
+    assert int(flipped.max()) <= 2
+    assert int((flipped.max(axis=1) > 0).sum()) <= max(1, b // 64)
+    assert float((hyb["quality"] - k1["quality"]).abs().max()) <= 1e-6

@@ -74,27 +74,45 @@ def test_row_counts_equal_jax_kernel(planted, oracle31, sim):
     assert hamming_cuda.scan_row_counts.launches == 0
 
 
-def test_extract_equal_jax_kernel(planted):
+def _extract_both(planted, rows, n_pad_slots, sim):
+    """K4's plain version and the JAX kernel (interpret mode) on hot rows
+    `rows` followed by inert pad slots (row n-1, qidx n)."""
     base, variants, low = planted
     var_pm1, low_j, n, npad = hamming_pallas.prepare_inputs(base, variants,
                                                             low)
     var_bits, low_t, _, _ = hamming_cuda.prepare_inputs(base, variants, low)
-    # hot rows, a few cold ones, and inert pad slots (row n-1, qidx n)
-    rows = np.array([7, 55, 100, 40, 41, 0, 2999, 1500] + [n - 1] * 8)
-    qidx = np.array(rows[:8].tolist() + [n] * 8, dtype=np.int32)[:, None]
-    qlow = np.ones((16, 1), dtype=np.int32)
-    qlow[:8, 0] = low[rows[:8]]
+    m = len(rows)
+    ridx = np.array(list(rows) + [n - 1] * n_pad_slots)
+    qidx = np.array(list(rows) + [n] * n_pad_slots, dtype=np.int32)[:, None]
+    qlow = np.ones((len(ridx), 1), dtype=np.int32)
+    qlow[:m, 0] = low[ridx[:m]]
     want = np.asarray(hamming_pallas.extract_rows_packed(
-        jax.device_put(var_pm1[:, rows]), jax.device_put(var_pm1[0]),
+        jax.device_put(var_pm1[:, ridx]), jax.device_put(var_pm1[0]),
         jax.device_put(qlow), jax.device_put(low_j), jax.device_put(qidx),
-        nbits=256, sim=31, n_total=n, interpret=True))
+        nbits=256, sim=sim, n_total=n, interpret=True))
     got = hamming_cuda.extract_rows_packed(
-        var_bits[:, torch.from_numpy(rows)], var_bits[0],
-        torch.from_numpy(qlow), low_t, torch.from_numpy(qidx), sim=31,
+        var_bits[:, torch.from_numpy(ridx)], var_bits[0],
+        torch.from_numpy(qlow), low_t, torch.from_numpy(qidx), sim=sim,
         n_total=n)
-    assert got.dtype == torch.uint8 and got.shape == (16, npad // 8)
+    assert got.dtype == torch.uint8 and got.shape == (len(ridx), npad // 8)
     assert got.numpy().tobytes() == want.tobytes()
-    assert got[8:].sum() == 0
+    assert got[m:].sum() == 0
+    return got
+
+
+def test_extract_equal_jax_kernel(planted):
+    # hot rows, a few cold ones, and inert pad slots (row n-1, qidx n)
+    _extract_both(planted, [7, 55, 100, 40, 41, 0, 2999, 1500], 8, sim=31)
+
+
+def test_extract_equal_jax_kernel_ascending_padded(planted):
+    """Hot rows as the edge search hands them over: ascending, padded to
+    a multiple of 32 with inert slots."""
+    rows = [0, 7, 40, 41, 55, 100, 1500, 1800, 2222, 2500, 2990, 2991, 2999]
+    got = _extract_both(planted, rows, 32 - len(rows), sim=31)
+    bits = np.unpackbits(got.numpy(), axis=1, bitorder="little")
+    hits = {(rows[r], int(c)) for r, c in zip(*np.nonzero(bits))}
+    assert hits == {(7, 1800), (40, 2990), (55, 2222), (100, 2500)}
 
 
 def test_find_edges_match_oracle_and_jax(planted, oracle31):

@@ -87,3 +87,80 @@ def test_pdq_coeffs_rejects_bad_inputs():
     coeffs, quality = pdq_hybrid.pdq_coeffs(lumas, *ops)
     assert coeffs.shape == (2, 256) and quality.shape == (2,)
     assert float(quality.abs().max()) == 0.0     # flat planes
+
+
+@pytest.mark.parametrize("b", [1, 5, 16])
+@pytest.mark.parametrize("rows,cols", [(288, 512), (240, 320), (512, 288)])
+def test_hybrid_entry_matches_jax_hybrid_at_scan_shapes(b, rows, cols):
+    """The hybrid entry's four outputs against the JAX package's hybrid
+    path (its Pallas kernel in interpret mode, then its XLA epilogue):
+    hash and dihedral exact, quality within 1e-6, coeffs within rtol 1e-4,
+    atol 0.5 (float32 sums taken in another order)."""
+    rng = np.random.default_rng(rows + cols + b)
+    small = rng.integers(0, 256, (b, rows // 8, cols // 8), dtype=np.uint8)
+    # blocky texture with a little noise: PDQ quality well above zero
+    lumas = np.kron(small, np.ones((8, 8), np.uint8))
+    lumas = (lumas.astype(np.int16)
+             + rng.integers(-3, 4, lumas.shape)).clip(0, 255).astype(np.uint8)
+    want = pdq_pallas.pdq_hash_batch_hybrid(lumas, interpret=True)
+    got = pdq_hybrid.pdq_hash_batch_hybrid(lumas)
+    assert got["dihedral"].shape == (b, 8, 32) and got["hash"].shape == (b, 32)
+    assert got["quality"].shape == (b,) and got["coeffs"].shape == (b, 256)
+    assert np.array_equal(got["hash"].numpy(), np.asarray(want["hash"]))
+    assert np.array_equal(got["dihedral"].numpy(),
+                          np.asarray(want["dihedral"]))
+    assert np.abs(got["quality"].numpy()
+                  - np.asarray(want["quality"])).max() <= 1e-6
+    np.testing.assert_allclose(got["coeffs"].numpy(),
+                               np.asarray(want["coeffs"]), rtol=1e-4, atol=0.5)
+    assert pdq_hybrid.pdq_coeffs.launches == 0
+
+
+def _tied_coeffs(kind: str) -> np.ndarray:
+    """(16, 16) float32 coefficients whose medians fall on ties."""
+    rng = np.random.default_rng(len(kind))
+    c = rng.standard_normal((16, 16)).astype(np.float32) * 50
+    if kind == "tie_at_median":
+        flat = c.reshape(-1)
+        order = np.argsort(flat)
+        flat[order[120:136]] = flat[order[127]]      # 16 equal values around it
+    elif kind == "signed_zeros":
+        flat = c.reshape(-1)
+        order = np.argsort(flat)
+        flat[order[100:128]] = -0.0
+        flat[order[128:150]] = 0.0
+    elif kind == "all_equal":
+        c[:] = 3.5
+    elif kind == "all_zero":
+        c[:] = 0.0
+        c[::2] = -0.0
+    elif kind == "two_values":
+        c[:] = np.where(rng.random((16, 16)) < 0.5, -1.0, 1.0)
+    return c
+
+
+@pytest.mark.parametrize("kind", ["random", "tie_at_median", "signed_zeros",
+                                  "all_equal", "all_zero", "two_values"])
+def test_dihedral_epilogue_plain_matches_golden_on_ties(kind):
+    """pdq_torch.dihedral_from_coeffs, the plain version of the epilogue
+    K1 and K2 share, against the numpy golden where the lower median
+    falls on equal values and on +0.0 / -0.0."""
+    coeffs = np.stack([_tied_coeffs(kind), -_tied_coeffs(kind),
+                       _tied_coeffs(kind).T.copy()])
+    got = pdq_torch.dihedral_from_coeffs(torch.from_numpy(coeffs)).numpy()
+    for i in range(len(coeffs)):
+        want = pdq_ref.dihedral_hashes(coeffs[i])
+        assert [bytes(got[i, v]) for v in range(8)] == want
+
+
+def test_hybrid_entry_on_cpu_is_the_plain_pair():
+    lumas = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (3, 96, 80), dtype=np.uint8))
+    coeffs, quality = pdq_hybrid.pdq_coeffs(
+        lumas, *pdq_hybrid.operators(96, 80, "cpu"))
+    entry = pdq_hybrid.pdq_hash_batch_hybrid(lumas)
+    assert torch.equal(entry["coeffs"], coeffs)
+    assert torch.equal(entry["quality"], quality)
+    assert torch.equal(entry["dihedral"], pdq_torch.dihedral_from_coeffs(
+        coeffs.reshape(-1, 16, 16)))
+    assert torch.equal(entry["hash"], entry["dihedral"][:, 0])
