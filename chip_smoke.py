@@ -25,12 +25,17 @@ failure exits non-zero:
      search's wall split into K3, K4, compaction and host assembly; and
      the edge search against the brute-force oracle at N=4,096;
   6. K6 (int8 tensor-core count sweep) against K3 and its plain
-     version on phase 5's N=100,000 hashes, K6 ms beside K3 ms; then K3
+     version on phase 5's N=100,000 hashes, K6 ms beside K3 ms, and at
+     N=3,000 for both hash widths and variant counts; then K3
      against K6 at N=1,000,000 x 8 variants, sim 40, K4's launches over
      that input's hot rows, and the edge search there, its wall split by
      stage, against a host oracle on a sample of rows;
   7. K5 (column restack) against its plain version, bit for bit, at
-     W = 128, 256, 288, beside one PyTorch permute-and-copy;
+     W = 128, 256, 288 and at (1, 8192, 8 * 288), 75.5 MB each way,
+     beside one PyTorch permute-and-copy: device time a launch (kernel
+     durations under torch.profiler, and a CUDA graph's replay, which
+     stands in where the profiler records nothing) next to the time of
+     a Python call, which at the tool's size is the host's;
   8. demosaic: the port's RAW pipeline (plain PyTorch, no kernel) on
      the card against the CPU at 24 MP, RGGB with a colour matrix and
      X-Trans: at most 1 u8 level apart on at most 1e-4 of the values;
@@ -641,6 +646,24 @@ def phase_k6(inputs):
             result.update(ms=ms, plain_ms=plain_ms, k3_ms=k3_ms,
                           **sweep_bound(n, pm1.shape[0], 256,
                                         pm1.numel() + 4 * low_d.numel()))
+            phase("k6", f"N={n} sim={sim}: bound {result['bound_ms']:.3f} ms "
+                  f"({result['bound_by']}), share "
+                  f"{result['bound_ms'] / ms:.3f}")
+    for v, nbytes, sim in ((1, 32, 40), (8, 8, 10), (1, 8, 6)):
+        n3 = 3000
+        sb, sv, sl = small_planted(n3, v, nbytes, SEED + v + nbytes)
+        vb, ld, _, _ = hamming_cuda.prepare_inputs_device(sb, sv, sl)
+        p3 = hamming.unpack_bits_pm1(vb).contiguous()
+        before = hamming_cuda.scan_row_counts_pm1.launches
+        k6 = hamming_cuda.scan_row_counts_pm1(p3, ld, sim=sim, n_total=n3)
+        check(hamming_cuda.scan_row_counts_pm1.launches == before + 1,
+              f"K6 V={v} {nbytes * 8} bits: the wrapper did not launch once")
+        check(torch.equal(k6, hamming_cuda.scan_row_counts_pm1_plain(
+            p3, ld, sim=sim, n_total=n3)) and torch.equal(
+                k6, hamming_cuda.scan_row_counts(vb, ld, sim=sim, n_total=n3)),
+            f"K6 V={v} {nbytes * 8} bits: counts differ from plain or K3")
+        phase("k6", f"N={n3} V={v} {nbytes * 8} bits sim={sim}: counts "
+              f"identical to plain and K3 ({int(k6.sum())} matches)")
     return result
 
 
@@ -731,6 +754,43 @@ def phase_k3_1m(dev, n=1_000_000):
              "k4_1m_bound_ms": k4_bnd["bound_ms"]})
 
 
+def device_ms(fn, reps):
+    """Mean device time of one fn() in ms: the durations of the kernels
+    it launches, as torch.profiler records them.  Unlike a pair of events
+    around many calls, this leaves out the time the host takes to make
+    a call, which exceeds a few-microsecond kernel's own.  None where the
+    profiler records no device activity (its tracing is not open to
+    every process): the caller then reads graph_ms instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages())
+    return us / reps / 1e3 if us > 0 else None
+
+
+def graph_ms(fn, launches=20, replays=10):
+    """Mean ms of one fn() when `launches` of them replay from a CUDA
+    graph: device time plus the gap between two nodes of a graph, with
+    no host work between the launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, replays) / launches
+
+
 def phase_k5(dev):
     import numpy as np
     import torch
@@ -739,30 +799,74 @@ def phase_k5(dev):
 
     rng = np.random.default_rng(SEED)
     result = {"max_abs_err": 0.0}
-    for width in (128, 256, 288):
-        x = torch.from_numpy(rng.standard_normal((1, 64, 8 * width))
+    # the tool's three widths at its 64 rows, then a size that device
+    # memory bounds: 8192 rows, 75.5 MB each way
+    for rows, width in ((64, 128), (64, 256), (64, 288), (8192, 288)):
+        x = torch.from_numpy(rng.standard_normal((1, rows, 8 * width))
                              .astype(np.float32)).to(dev)
+        before = restack.restack.launches
         got = restack.restack(x, width)
+        check(restack.restack.launches == before + 1,
+              f"K5 {rows}x{width}: the wrapper did not launch the kernel once")
         want = restack.restack_plain(x, width)
         torch.cuda.synchronize()
         check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-              f"K5 W={width}: differs from the plain version")
-        ms, plain_ms = paired_ms(lambda: restack.restack(x, width),
-                                 lambda: restack.restack_plain(x, width), 200)
+              f"K5 {rows}x{width}: differs from the plain version")
+        del got
+
+        def kernel():
+            return restack.restack(x, width)
+
+        def plain():
+            return restack.restack_plain(x, width)
 
         def library():   # one PyTorch copy computes the same restack
-            return x[0].view(64, 8, width).permute(1, 0, 2).contiguous() \
-                .view(8 * 64, width)
+            return x[0].view(rows, 8, width).permute(1, 0, 2).contiguous() \
+                .view(8 * rows, width)
 
-        check(torch.equal(library(), want), f"K5 W={width}: the library "
-              "call differs")
-        lib_ms = cuda_ms(library, 200)
+        check(torch.equal(library(), want), f"K5 {rows}x{width}: the "
+              "library call differs")
+        del want
+        reps = 200 if rows == 64 else 20
+        call_ms, plain_call_ms = paired_ms(kernel, plain, reps)
+        lib_call_ms = cuda_ms(library, reps)
+        # device time, in the order plain, kernel, library, library,
+        # kernel, plain
+        runs = [device_ms(f, reps) for f in (plain, kernel, library, library,
+                                             kernel, plain)]
+        g_ms, g_lib_ms = graph_ms(kernel), graph_ms(library)
+        if None in runs:
+            timed_by = "a CUDA graph's replay: torch.profiler recorded none"
+            plain_ms, ms, lib_ms = graph_ms(plain), g_ms, g_lib_ms
+        else:
+            timed_by = "torch.profiler"
+            plain_ms, ms, lib_ms = ((runs[0] + runs[5]) / 2,
+                                    (runs[1] + runs[4]) / 2,
+                                    (runs[2] + runs[3]) / 2)
         bnd = bound(0.0, 2 * x.numel() * 4)
-        phase("k5", f"W={width}: bit-identical to plain; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, permute+contiguous {lib_ms:.4f} ms, "
-              f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']})")
-        if width == 288:
-            result.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
+        phase("k5", f"rows={rows} W={width} ({x.numel() * 4 / 1e6:.1f} MB each "
+              f"way): bit-identical to plain; device time a launch "
+              f"({timed_by}): kernel {ms * 1e3:.2f} us, "
+              f"permute+contiguous {lib_ms * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.2f} us; from a CUDA graph of 20 launches: "
+              f"kernel {g_ms * 1e3:.2f} us, permute+contiguous "
+              f"{g_lib_ms * 1e3:.2f} us; per Python call (events around "
+              f"{reps} calls): kernel {call_ms * 1e3:.2f} us, "
+              f"permute+contiguous {lib_call_ms * 1e3:.2f} us, plain "
+              f"{plain_call_ms * 1e3:.2f} us; bound {bnd['bound_ms'] * 1e3:.2f} "
+              f"us ({bnd['bound_by']}), share {bnd['bound_ms'] / ms:.3f}")
+        if (rows, width) == (64, 288):
+            result.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          timed_by=timed_by, graph_ms=g_ms, library_graph_ms=g_lib_ms,
+                          call_ms=call_ms, plain_call_ms=plain_call_ms,
+                          library_call_ms=lib_call_ms, **bnd)
+        elif rows == 8192:
+            result.update(large_ms=ms, large_plain_ms=plain_ms,
+                          large_library_ms=lib_ms, large_graph_ms=g_ms,
+                          large_bound_ms=bnd["bound_ms"],
+                          large_share=bnd["bound_ms"] / ms)
+        del x
+        torch.cuda.empty_cache()
     return result
 
 
@@ -1478,6 +1582,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k3_1m, k4_1m = phase_k3_1m(dev)
     hm["k3"].update(k3_1m)
+    k6.update(ms_1m=k3_1m["k6_1m_ms"], bound_ms_1m=k3_1m["k3_1m_bound_ms"])
     hm["k4"].update(k4_1m)
     torch.cuda.empty_cache()
     k5 = phase_k5(dev)

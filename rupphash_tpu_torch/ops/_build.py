@@ -37,7 +37,8 @@ _SIGNATURES = {
                               _P],
     "rupp_hamming_extract": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P, _P, _P],
-    "rupp_hamming_rowcount_mma": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "rupp_hamming_rowcount_mma": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
+                                  _P],
     "rupp_restack": [_P, _I, _I, _I, _P, _P],
 }
 

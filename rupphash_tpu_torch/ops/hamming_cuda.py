@@ -14,9 +14,9 @@ _prof_nz.py::_rowcount_kernel_dg and takes that kernel's own +/-1 int8
 input.  Outputs keep the JAX layouts: per-row counts (Npad, 1) int32 and packed match masks (MQ,
 Npad / 8) u8 with bit j % 8 of byte j // 8.
 
-Rows pad to a multiple of ROW_ALIGN, K6's base tile (a multiple of K3's
-and of K4's), so shared-memory staging never reads past the end.
-Padding rows are marked low-confidence and masked by index.
+Rows pad to a multiple of ROW_ALIGN, a multiple of K6's column block and
+query granule and of K3's and K4's tiles, so staging never reads past
+the end.  Padding rows are marked low-confidence and masked by index.
 """
 
 from __future__ import annotations
@@ -28,13 +28,18 @@ import torch
 
 from . import _build, hamming
 
-ROW_ALIGN = 1024          # csrc/hamming_mma.cu kBaseTile
+ROW_ALIGN = 1024          # a multiple of PM1_COLS, PM1_QROWS and SWEEP_BROWS
 SWEEP_QROWS = 64          # csrc/hamming.cu kQRows: query rows per K3 item
 SWEEP_BROWS = 128         # csrc/hamming.cu kBRows: base rows per K3 tile
 SWEEP_GROUPS = 2          # csrc/hamming.cu kGroups: warpgroups per K3 block
 SWEEP_ITEM_TILES = 64     # base tiles per K3 work item
 # base tiles per K4 work item: few query tiles, so shorter runs than K3's fill the card
 EXTRACT_ITEM_TILES = 32
+PM1_COLS = 512            # csrc/hamming_mma.cu kBlockCols: base rows per K6 block
+PM1_WARP_COLS = 64        # csrc/hamming_mma.cu kWarpCols: base rows per K6 warp
+PM1_QROWS = 128           # query rows per K6 stage at V=1 (8 tiles of 16); 16 at V=8
+PM1_ITEM_ROWS = 2048      # query rows per K6 work item
+PM1_TAIL_ROWS = 512       # and per item of the last runs
 KERNEL_NBYTES = (8, 32)   # hash widths the kernels are built for (pHash, PDQ)
 KERNEL_VARIANTS = (1, 8)  # query variant counts the kernels are built for
 
@@ -229,6 +234,59 @@ def scan_row_counts_pm1_plain(var_pm1, low_i32, *, sim=40, n_total=0):
         low_i32, nbits, npad, sim=sim, n_total=n_total)
 
 
+def pm1_sweep_items(n_total: int, npad: int) -> np.ndarray:
+    """K6's work list: (n_items, 4) int32 rows [c0, q_begin, q_end, 0].
+
+    Item k pairs the base rows (matrix columns) [c0, c0 + PM1_COLS), which
+    a block keeps in registers, with the query rows [q_begin, q_end) that
+    stream past them: a run of at most PM1_ITEM_ROWS rows in whole
+    granules of PM1_QROWS.  Column blocks run over the rows below n; each
+    one's query rows run from 0 to the end of the block (rows at or past a
+    column have no pair with it) or to the granule holding n - 2.  Every
+    pair i < j < n falls in exactly one item.  Items come run-major: all
+    column blocks of one query run are neighbours, so the blocks in
+    flight read the same query rows.  The runs past 0.8 n, the last
+    twenty-fifth of the pairs, are PM1_TAIL_ROWS long, so that the blocks
+    finish within a short item of each other."""
+    n = min(int(n_total), int(npad))
+    if n < 2:
+        return np.zeros((0, 4), dtype=np.int32)
+    c0 = np.arange(0, n, PM1_COLS, dtype=np.int64)
+    q_last = -(-np.minimum(c0 + PM1_COLS - 1, n - 1) // PM1_QROWS) * PM1_QROWS
+    q_cut = n * 4 // 5 // PM1_ITEM_ROWS * PM1_ITEM_ROWS
+    begin = np.concatenate([np.arange(0, q_cut, PM1_ITEM_ROWS),
+                            np.arange(q_cut, q_last[-1], PM1_TAIL_ROWS)])
+    end = np.append(begin[1:], q_last[-1])
+    # run t meets the column blocks whose query rows reach past its start
+    first = np.searchsorted(q_last, begin, side="right")
+    blocks = len(c0) - first
+    col = np.arange(int(blocks.sum())) - np.repeat(np.cumsum(blocks) - blocks,
+                                                   blocks) + np.repeat(first,
+                                                                       blocks)
+    items = np.zeros((len(col), 4), dtype=np.int32)
+    items[:, 0] = c0[col]
+    items[:, 1] = np.repeat(begin, blocks)
+    items[:, 2] = np.minimum(np.repeat(end, blocks), q_last[col])
+    return items
+
+
+def pm1_sweep_tiles(items: np.ndarray, n_total: int, npad: int):
+    """The (q0, w0) tiles of 16 query rows x PM1_WARP_COLS base rows that
+    K6's warps compute for `items`, in the kernel's order.  A warp skips a
+    tile whose rows all lie at or past its last column, or past n."""
+    n = min(int(n_total), int(npad))
+    for c0, q_begin, q_end, _ in items.tolist():
+        for q0 in range(q_begin, q_end, 16):
+            for w0 in range(c0, c0 + PM1_COLS, PM1_WARP_COLS):
+                if not (q0 >= w0 + PM1_WARP_COLS - 1 or w0 >= n or q0 >= n):
+                    yield q0, w0
+
+
+@functools.lru_cache(maxsize=8)
+def _pm1_items_on(n_total: int, npad: int, dev: torch.device):
+    return torch.from_numpy(pm1_sweep_items(n_total, npad)).to(dev)
+
+
 def scan_row_counts_pm1(var_pm1, low_i32, *, sim=40, n_total=0):
     """var_pm1 (V, Npad, nbits) int8 in {-1, +1} (the TPU kernels' input,
     hamming.unpack_bits_pm1 of the packed hashes); low_i32 (Npad, 1)
@@ -248,13 +306,19 @@ def scan_row_counts_pm1(var_pm1, low_i32, *, sim=40, n_total=0):
                          f"{tuple(var_pm1.shape)}")
     if not (var_pm1.is_contiguous() and low_i32.is_contiguous()):
         raise ValueError("K6 takes contiguous tensors")
+    if var_pm1.data_ptr() % 16 or low_i32.data_ptr() % 16:
+        raise ValueError("K6 copies 16 bytes at a time: both tensors must "
+                         "start on a 16-byte boundary")
     counts = torch.zeros((npad, 1), dtype=torch.int32, device=var_pm1.device)
-    err = _build.load().lib.rupp_hamming_rowcount_mma(
-        var_pm1.data_ptr(), low_i32.data_ptr(), v, nbits, npad,
-        int(n_total), int(sim), counts.data_ptr(),
-        _build.stream_ptr(var_pm1))
-    _build.check(err, "hamming_rowcount_mma_kernel")
-    _build.count_launch(scan_row_counts_pm1)
+    items = _pm1_items_on(int(n_total), npad, var_pm1.device)
+    if len(items):
+        next_item = torch.zeros(1, dtype=torch.int32, device=var_pm1.device)
+        err = _build.load().lib.rupp_hamming_rowcount_mma(
+            var_pm1.data_ptr(), low_i32.data_ptr(), items.data_ptr(),
+            len(items), next_item.data_ptr(), v, nbits, npad, int(n_total),
+            int(sim), counts.data_ptr(), _build.stream_ptr(var_pm1))
+        _build.check(err, "hamming_rowcount_mma_kernel")
+        _build.count_launch(scan_row_counts_pm1)
     return counts
 
 

@@ -8,10 +8,16 @@ and its power limit: K1 (`pdq_cuda.pdq_hash`) at B=256 for 288x512,
 240x320 and 512x288 (rows x columns) textured lumas; K2 on the 288x512
 batch, the kernel alone (`pdq_hybrid.pdq_coeffs`) and the hybrid entry
 (`pdq_hybrid.pdq_hash_batch_hybrid`); K3 (`hamming_cuda.scan_row_counts`)
-at N=100,000 hashes x 8 variants, sim 40; and K4
+at N=100,000 hashes x 8 variants, sim 40; K4
 (`hamming_cuda.extract_rows_packed`) over that input's hot rows, padded
-as the edge search pads them.  Each process builds its own checkout's kernels and draws the same
-inputs from one seed; a digest of the outputs shows that the two
+as the edge search pads them; K6 (`hamming_cuda.scan_row_counts_pm1`) on
+the same hashes as +/-1 int8; and K5 (`restack.restack`) at (1, 64,
+8 * 288) and (1, 8192, 8 * 288) float32, as device time a launch (the
+kernels' durations under torch.profiler, or a CUDA graph's replay where
+the profiler records nothing; a call of the small size is shorter on
+the device than the host takes to make it).  Each process
+builds its own checkout's kernels and draws the same inputs from one
+seed; a digest of the outputs shows that the two
 versions computed the same thing.  Prints one JSON line per run and a
 summary line of the mean times.  Needs a card (exit 3 without one).
 """
@@ -31,7 +37,9 @@ _CHILD = r"""
 import hashlib, json
 import numpy as np
 import torch
-from rupphash_tpu_torch.ops import hamming_cuda, pdq_cuda, pdq_hybrid, pdq_torch
+from torch.profiler import ProfilerActivity, profile
+from rupphash_tpu_torch.ops import (hamming, hamming_cuda, pdq_cuda, pdq_hybrid,
+                                    pdq_torch, restack)
 
 dev = torch.device("cuda")
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -47,6 +55,27 @@ def ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages())
+    if us > 0:
+        return us / reps / 1e3
+    # the profiler's tracing is not open to every process: replay the
+    # launches from a CUDA graph, which adds the gap between two nodes
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(20):
+            fn()
+    return ms(graph.replay, 10) / 20
 
 
 out = {}
@@ -105,6 +134,20 @@ out[f"k4_{len(hot)}_rows_100k"] = {
     "ms": ms(lambda: hamming_cuda.extract_rows_packed(*k4, sim=40, n_total=n),
              10),
     "digest": hashlib.sha256(mask.cpu().numpy().tobytes()).hexdigest()[:16]}
+del mask, k4
+pm1 = hamming.unpack_bits_pm1(var_bits).contiguous()
+c6 = hamming_cuda.scan_row_counts_pm1(pm1, low_d, sim=40, n_total=n)
+out["k6_100k"] = {"ms": ms(lambda: hamming_cuda.scan_row_counts_pm1(
+    pm1, low_d, sim=40, n_total=n), 5),
+    "digest": hashlib.sha256(c6.cpu().numpy().tobytes()).hexdigest()[:16]}
+del pm1, var_bits
+for rows, reps in ((64, 200), (8192, 20)):
+    x = torch.from_numpy(rng.standard_normal((1, rows, 8 * 288))
+                         .astype(np.float32)).to(dev)
+    y = restack.restack(x, 288)
+    out[f"k5_{rows}x288_device"] = {
+        "ms": device_ms(lambda: restack.restack(x, 288), reps),
+        "digest": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]}
 print(json.dumps(out))
 """
 

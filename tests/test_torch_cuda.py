@@ -415,10 +415,13 @@ def test_k2_fused_epilogue_equals_its_plain_version_and_k1(dev, shape, b):
     """The redesigned K2 (wgmma, one warpgroup per image, the dihedral
     epilogue in the kernel): one launch; its hashes equal
     dihedral_from_coeffs of its own coefficients; coefficients and
-    quality do not depend on whether the epilogue runs.  K1 sums in
-    another order (L . (X . R^T) against (L . X) . R^T), so a coefficient
-    within rounding of its median may fall on the other side: against K1
-    at most one image in 64 may differ, by at most 2 bits a variant."""
+    quality do not depend on whether the epilogue runs.  K1 and K2 sum
+    in different orders (L . (X . R^T) and (L . X) . R^T), and each lies
+    a few 1e-5 from the golden's running box sums, so either kernel may
+    put a coefficient that is within rounding of its variant's median on
+    the other side of it: between the two at most one image in 64 may
+    differ, by at most 2 bits a variant (each against the golden:
+    test_k1_and_k2_kernels_against_golden_on_257_textures)."""
     rng = np.random.default_rng(shape[0] + b)
     small = torch.from_numpy(rng.integers(0, 256, (b, 1, 24, 32))
                              .astype(np.float32)).to(dev)
@@ -445,3 +448,119 @@ def test_k2_fused_epilogue_equals_its_plain_version_and_k1(dev, shape, b):
     assert int(flipped.max()) <= 2
     assert int((flipped.max(axis=1) > 0).sum()) <= max(1, b // 64)
     assert float((hyb["quality"] - k1["quality"]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [(240, 320), (288, 512), (512, 288)])
+def test_k1_and_k2_kernels_against_golden_on_257_textures(dev, shape):
+    """Both PDQ kernels against the numpy golden on 257 textures made on
+    the card (the batch of the test above): each kernel may leave the
+    golden on at most one image in 64, by at most 2 bits a variant, with
+    quality within 1e-6.  Prints which kernel differs where (run with
+    -s); tests/test_torch_golden.py holds the plain versions and the JAX
+    package's two paths to the same bound on the CPU."""
+    from rupphash_tpu_torch.ops import pdq_ref
+
+    b = 257
+    rng = np.random.default_rng(shape[0] + b)
+    small = torch.from_numpy(rng.integers(0, 256, (b, 1, 24, 32))
+                             .astype(np.float32)).to(dev)
+    lumas = torch.nn.functional.interpolate(
+        small, size=shape, mode="bilinear", align_corners=False
+    ).round().clamp(0, 255).to(torch.uint8)[:, 0].contiguous()
+    before = pdq_cuda.pdq_hash.launches, pdq_hybrid.pdq_coeffs.launches
+    outs = {"K1": pdq_torch.pdq_hash_batch(lumas),
+            "K2": pdq_hybrid.pdq_hash_batch_hybrid(lumas)}
+    torch.cuda.synchronize()
+    assert (pdq_cuda.pdq_hash.launches, pdq_hybrid.pdq_coeffs.launches) == \
+        (before[0] + 1, before[1] + 1)
+    coeffs, quality = [], []
+    for luma in lumas.cpu().numpy():
+        c, _, q = pdq_ref.pdq_from_luma(luma)
+        coeffs.append(c)
+        quality.append(q)
+    want = pdq_ref.dihedral_hashes_batch(np.stack(coeffs))
+    for name, out in outs.items():
+        got = out["dihedral"].cpu().numpy()
+        flipped = np.unpackbits(got ^ want, axis=2).sum(axis=2)   # (B, 8)
+        differs = np.flatnonzero(flipped.max(axis=1))
+        print(f"F1 {name} {shape[0]}x{shape[1]}: {len(differs)} of {b} images "
+              f"differ from pdq_ref: {differs.tolist()}, bits a variant "
+              f"{[flipped[i].tolist() for i in differs]}")
+        assert len(differs) <= b // 64 and int(flipped.max()) <= 2, name
+        assert np.abs(out["quality"].cpu().numpy()
+                      - np.array(quality)).max() <= 1e-6, name
+
+
+@pytest.mark.parametrize("n", [1023, 2500, 20_000])
+@pytest.mark.parametrize("nbytes", [8, 32])
+@pytest.mark.parametrize("v", [1, 8])
+def test_k6_register_resident_walk_equals_plain_and_k3(dev, n, nbytes, v):
+    """The redesigned K6 (base fragments in registers, query rows
+    streamed through a cp.async ring, triangle-only items) against its
+    plain version and K3: n not a multiple of any tile, low-quality
+    rows, a block of 300 equal hashes (many matches a tile, so the
+    predicate runs), pairs through a late variant slot, and a match
+    between the first row and the last."""
+    rng = np.random.default_rng(100 * n + nbytes + v)
+    var = rng.integers(0, 256, (n, v, nbytes), dtype=np.uint8)
+    dup = rng.choice(n, 300, replace=False)
+    var[dup, 0] = var[dup[0], 0]
+    var[dup[::3], 0, 0] ^= 1
+    var[n - 1, 0] = var[0, 0]
+    if v > 1:
+        var[5, v - 1] = var[n - 2, 0]
+    low = rng.random(n) < 0.03
+    low[dup[::7]] = True
+    base = np.ascontiguousarray(var[:, 0])
+    var_bits, low_d, _, _ = hamming_cuda.prepare_inputs_device(base, var, low)
+    pm1 = hamming.unpack_bits_pm1(var_bits).contiguous()
+    sim = 1 if nbytes == 8 else 31
+    before = hamming_cuda.scan_row_counts_pm1.launches
+    k6 = hamming_cuda.scan_row_counts_pm1(pm1, low_d, sim=sim, n_total=n)
+    assert hamming_cuda.scan_row_counts_pm1.launches == before + 1
+    plain = hamming_cuda.scan_row_counts_pm1_plain(pm1, low_d, sim=sim,
+                                                   n_total=n)
+    k3 = hamming_cuda.scan_row_counts(var_bits, low_d, sim=sim, n_total=n)
+    torch.cuda.synchronize()
+    assert torch.equal(k6, plain) and torch.equal(k6, k3)
+    assert int(k6[0, 0]) >= 1 and int(k6.sum()) > 10_000
+    assert int(k6[n:].sum()) == 0
+    with pytest.raises(ValueError):   # a view that starts off a 16-byte boundary
+        hamming_cuda.scan_row_counts_pm1(
+            torch.ones(v * 1024 * nbytes * 8 + 1, dtype=torch.int8,
+                       device=dev)[1:].view(v, 1024, nbytes * 8),
+            torch.zeros((1024, 1), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("rows", [1, 64, 65])
+@pytest.mark.parametrize("width", [1, 3, 128, 130, 256, 288])
+def test_k5_row_copy_matches_plain_bitwise(dev, width, rows):
+    """The redesigned K5 (a warp an output row, 16-byte pieces where the
+    width and both bases allow, single floats otherwise) at widths that
+    take either path, and on an input that starts 4 bytes off a 16-byte
+    boundary, which takes the single-float path at any width."""
+    rng = np.random.default_rng(1000 * rows + width)
+    flat = torch.from_numpy(rng.standard_normal(rows * 8 * width + 1)
+                            .astype(np.float32)).to(dev)
+    for x in (flat[:-1].view(1, rows, 8 * width),
+              flat[1:].view(1, rows, 8 * width)):
+        before = restack.restack.launches
+        got = restack.restack(x, width)
+        assert restack.restack.launches == before + 1
+        want = restack.restack_plain(x, width)
+        torch.cuda.synchronize()
+        assert got.shape == (8 * rows, width)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_k5_at_a_bandwidth_bound_size(dev):
+    """(1, 8192, 8 * 288) float32, 75.5 MB each way: more output rows
+    than the grid holds warps, so every warp strides over several."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, 8192, 8 * 288)).astype(np.float32)).to(dev)
+    before = restack.restack.launches
+    got = restack.restack(x, 288)
+    assert restack.restack.launches == before + 1
+    want = restack.restack_plain(x, 288)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
