@@ -43,6 +43,19 @@ failure exits non-zero:
      generated directory of textured images with 60 planted duplicate
      groups and 20 preview-less DNGs with PNG twins (80 groups); checks
      the printed groups and that every kernel launched;
+ 9a. gui: `--use-gui` on phase 9's tree with a cache of its own (the
+     scan in the GUI's worker thread while the server answers): the
+     groups equal the CLI's, K1, K3 and K4 launched; /api/image and
+     /api/analysis from 4 threads at once for a JPEG and three
+     preview-less DNGs, each DNG within the demosaic's bound of the
+     port's CPU rendition; a mark and a move through /api/intent; quit
+     with exit 0; then a restart on the same tree and cache: the same
+     groups less the moved file, K1 0 (every hash cached), K3 and K4
+     again; the GUI's host-clock latencies;
+ 9b. tui: `--use-tui` through a pseudo-terminal on 300 files with two
+     planted pairs: the list draws, the sort menu opens and closes, z
+     quits with exit 0, K1, K3 and K4 launched; then `--view --use-gui`
+     on the same directory lists its files and quits with exit 0;
  10. serve: NearDupService in process over a 1,000,000-row index
      (planted near copies at distances 0-40, low-quality rows,
      tombstones), ~200 images added through /v1/add, ~200 /v1/query
@@ -65,7 +78,8 @@ the last line.  Every kernel-vs-plain timing runs plain, kernel, kernel,
 plain on the same inputs and reports the mean of the two of each.  The
 launch counts in the JSON line come from the runs of phase 9 (K1, K3,
 K4) and phase 12 (K2, K5, K6), each a new process whose counts start at
-0; phase 10 resets K1's count before it serves and checks it after.
+0; phases 9a and 9b read their own children's counts the same way, and
+phase 10 resets K1's count before it serves and checks it after.
 """
 
 from __future__ import annotations
@@ -1015,53 +1029,467 @@ def write_corpus(d: Path):
     return n_files + 40, planted
 
 
-def phase_e2e():
+def reset_scan_counts():
+    """Set the scan route's launch counts in this process to 0."""
     from rupphash_tpu_torch.ops import hamming_cuda, pdq_cuda
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        photos = Path(tmp) / "photos"
-        photos.mkdir()
+    for fn in (pdq_cuda.pdq_hash, hamming_cuda.scan_row_counts,
+               hamming_cuda.extract_rows_packed):
+        fn.launches = 0
+
+
+def kernel_counts(text: str) -> dict:
+    """The last [KERNELS] line of a child's stderr, as {name: count}."""
+    lines = re.findall(r"\[KERNELS\] (.*)", text)
+    check(lines, "no [KERNELS] line:\n" + text[-3000:])
+    return {k: int(v) for k, v in (kv.split("=") for kv in lines[-1].split())}
+
+
+def child_env(tmp: Path, label: str) -> dict:
+    """The environment of a child of this script: the checkout on the
+    path, the debug lines on, a configuration and cache of its own."""
+    return {**os.environ, "RUPPHASH_DEBUG": "1",
+            "PYTHONPATH": os.pathsep.join(
+                [str(ROOT), os.environ.get("PYTHONPATH", "")]),
+            "RUPPHASH_CONFIG_DIR": str(tmp / f"{label}_cfg"),
+            "RUPPHASH_CACHE_DIR": str(tmp / f"{label}_cache")}
+
+
+def phase_e2e(tmp: Path):
+    """The CLI's scan route on the corpus, written to tmp/photos (the gui
+    phase scans the same tree); the launch counts and the printed groups
+    as sets of file names."""
+    photos = tmp / "photos"
+    photos.mkdir()
+    t0 = time.perf_counter()
+    n_files, planted = write_corpus(photos)
+    phase("e2e", f"wrote {n_files} images ({len(planted)} planted groups) "
+          f"in {time.perf_counter() - t0:.1f} s")
+    # the run's launch counts start at 0 in the new process; the
+    # in-process counts are reset too, so nothing earlier can count
+    reset_scan_counts()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rupphash_tpu_torch", "--no-cache",
+         str(photos)], cwd=ROOT, env=child_env(tmp, "e2e"),
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"CLI exited {proc.returncode}:\n"
+          f"{proc.stderr[-4000:]}")
+    launches = kernel_counts(proc.stderr)
+    out = re.sub(r"\x1b\[[0-9;]*m", "", proc.stdout)
+    groups = [set(re.findall(r"/([^/\n]+)$", block, re.MULTILINE))
+              for block in out.split("--- Group")[1:]]
+    check(len(groups) == len(planted),
+          f"{len(groups)} groups printed, {len(planted)} planted")
+    for want in planted:
+        check(any(want <= g for g in groups),
+              f"planted group {sorted(want)} not printed together")
+    check(all(launches[k] > 0 for k in launches),
+          f"a kernel never launched on the main path: {launches}")
+    timing = re.findall(r"\[TIMING\][^\n]*", proc.stderr)
+    phase("e2e", f"python -m rupphash_tpu_torch --no-cache: {wall:.2f} s "
+          f"wall, {len(groups)} groups = planted; launches {launches}; "
+          f"{' | '.join(timing)}")
+    return launches, groups
+
+
+class StderrLines:
+    """A child's stderr, drained by a thread: waits have a deadline."""
+
+    def __init__(self, stream):
+        self.lines: list[str] = []
+        self.eof = False
+        self.cond = threading.Condition()
+        self.thread = threading.Thread(target=self._pump, args=(stream,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _pump(self, stream):
+        try:
+            for line in iter(stream.readline, ""):
+                with self.cond:
+                    self.lines.append(line)
+                    self.cond.notify_all()
+        finally:
+            with self.cond:
+                self.eof = True
+                self.cond.notify_all()
+
+    def text(self) -> str:
+        with self.cond:
+            return "".join(self.lines)
+
+    def wait_for(self, pattern: str, timeout: float):
+        rx = re.compile(pattern)
+        end = time.monotonic() + timeout
+        with self.cond:
+            while True:
+                for line in self.lines:
+                    m = rx.search(line)
+                    if m:
+                        return m
+                left = end - time.monotonic()
+                why = ("the child closed its stderr" if self.eof
+                       else f"{timeout} s")
+                check(left > 0 and not self.eof,
+                      f"no {pattern!r} ({why}):\n"
+                      + "".join(self.lines)[-3000:])
+                self.cond.wait(min(left, 1.0))
+
+
+class Gui:
+    """A `--use-gui` child of this script and its HTTP surface; the
+    CSRF token comes from the page at `/`, as a browser takes it."""
+
+    def __init__(self, args: list, env: dict, label: str):
+        self.label = label
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "rupphash_tpu_torch", "--use-gui",
+             "--port", "0", *args], cwd=ROOT, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        self.err = StderrLines(self.proc.stderr)
+        try:
+            self.base = self.err.wait_for(r"GUI at (http://\S+)/",
+                                          600).group(1)
+            _, page, _ = self.get("/")
+            self.token = re.search(rb"const TOKEN = '([0-9a-f]+)'",
+                                   page).group(1).decode()
+        except BaseException:
+            self.stop()
+            raise
+
+    def get(self, path: str, data: bytes | None = None, headers=None):
+        """(status, body bytes, seconds) of one request."""
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=data,
+                                     headers=headers or {})
         t0 = time.perf_counter()
-        n_files, planted = write_corpus(photos)
-        phase("e2e", f"wrote {n_files} images ({len(planted)} planted groups) "
-              f"in {time.perf_counter() - t0:.1f} s")
-        env = {**os.environ, "RUPPHASH_DEBUG": "1",
-               "PYTHONPATH": os.pathsep.join(
-                   [str(ROOT), os.environ.get("PYTHONPATH", "")]),
-               "RUPPHASH_CONFIG_DIR": str(Path(tmp) / "cfg"),
-               "RUPPHASH_CACHE_DIR": str(Path(tmp) / "cache")}
-        # the run's launch counts start at 0 in the new process; the
-        # in-process counts are reset too, so nothing earlier can count
-        for fn in (pdq_cuda.pdq_hash, hamming_cuda.scan_row_counts,
-                   hamming_cuda.extract_rows_packed):
-            fn.launches = 0
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "rupphash_tpu_torch", "--no-cache",
-             str(photos)], cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=900)
-        wall = time.perf_counter() - t0
-        check(proc.returncode == 0, f"CLI exited {proc.returncode}:\n"
-              f"{proc.stderr[-4000:]}")
-        m = re.search(r"\[KERNELS\] (.*)", proc.stderr)
-        check(m is not None, "CLI printed no [KERNELS] line")
-        launches = {k: int(v) for k, v in
-                    (kv.split("=") for kv in m.group(1).split())}
-        out = re.sub(r"\x1b\[[0-9;]*m", "", proc.stdout)
-        groups = [set(re.findall(r"/([^/\n]+)$", block, re.MULTILINE))
-                  for block in out.split("--- Group")[1:]]
-        check(len(groups) == len(planted),
-              f"{len(groups)} groups printed, {len(planted)} planted")
-        for want in planted:
-            check(any(want <= g for g in groups),
-                  f"planted group {sorted(want)} not printed together")
-        check(all(launches[k] > 0 for k in launches),
-              f"a kernel never launched on the main path: {launches}")
-        timing = re.findall(r"\[TIMING\][^\n]*", proc.stderr)
-        phase("e2e", f"python -m rupphash_tpu_torch --no-cache: {wall:.2f} s "
-              f"wall, {len(groups)} groups = planted; launches {launches}; "
-              f"{' | '.join(timing)}")
-        return launches
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                code, body = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            code, body = e.code, e.read()
+        return code, body, time.perf_counter() - t0
+
+    def state(self) -> dict:
+        code, body, _ = self.get("/api/state")
+        check(code == 200, f"{self.label}: /api/state {code}")
+        return json.loads(body)
+
+    def intent(self, name: str, arg=None) -> dict:
+        code, body, _ = self.get(
+            "/api/intent", json.dumps({"intent": name, "arg": arg}).encode(),
+            {"Content-Type": "application/json",
+             "X-Session-Token": self.token})
+        check(code == 200, f"{self.label}: intent {name}: {code} {body[:300]}")
+        return json.loads(body)
+
+    def wait_scanned(self, timeout: float) -> tuple[dict, float, float]:
+        """Poll /api/state until the scan is done: (state, seconds from
+        the start to the first answer, seconds to the scan's end)."""
+        first = None
+        end = time.monotonic() + timeout
+        while True:
+            snap = self.state()
+            if first is None:
+                first = time.perf_counter() - self.t0
+            check(not snap["status"].startswith("scan failed"),
+                  f"{self.label}: {snap['status']}")
+            if snap["scanning"] is None:
+                return snap, first, time.perf_counter() - self.t0
+            check(time.monotonic() < end, f"{self.label}: scan not done "
+                  f"in {timeout} s: {snap['scanning']}")
+            time.sleep(0.2)
+
+    def quit(self) -> str:
+        """Quit through the page's intent; exit 0; the stderr."""
+        check(self.intent("quit")["quit"], f"{self.label}: quit refused")
+        try:
+            rc = self.proc.wait(timeout=120)
+        finally:
+            self.stop()
+        self.err.thread.join(30)
+        err = self.err.text()
+        check(rc == 0, f"{self.label} exited {rc}:\n{err[-3000:]}")
+        return err
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+
+def group_names(snap: dict) -> list:
+    return sorted(sorted(f["name"] for f in g["files"])
+                  for g in snap["groups"])
+
+
+def file_index(snap: dict, name: str) -> tuple[int, int]:
+    for gi, g in enumerate(snap["groups"]):
+        for fi, f in enumerate(g["files"]):
+            if f["name"] == name:
+                return gi, fi
+    raise SmokeFailure(f"{name} is in no group of the GUI")
+
+
+_CPU_RENDER = """
+import sys
+from pathlib import Path
+from rupphash_tpu_torch import device
+device.pin("cpu")
+from rupphash_tpu_torch.gui import imaging
+eng = imaging.ImageEngine()
+for src, dst in zip(sys.argv[1::2], sys.argv[2::2]):
+    Path(dst).write_bytes(eng.render(Path(src), 1, None, max_side=2048,
+                                     fmt="png16"))
+"""
+
+
+def png16(data: bytes):
+    """The (H, W, 3) pixels of a 48-bit PNG as /api/image?deep=1 and
+    gui.imaging.encode_png16 write it (unfiltered scanlines), as int64;
+    Pillow would read it as 8-bit RGB."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        (n,) = struct.unpack_from(">I", data, pos)
+        tag, payload = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack_from(">IIBB", payload)
+            check((depth, ctype) == (16, 2), f"PNG {depth}-bit type {ctype}")
+        elif tag == b"IDAT":
+            idat += payload
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), dtype=np.uint8).reshape(
+        h, 1 + 6 * w)
+    check(not rows[:, 0].any(), "filtered PNG scanlines")
+    return rows[:, 1:].copy().view(">u2").reshape(h, w, 3).astype(np.int64)
+
+
+def phase_gui(tmp: Path, cli_groups: list):
+    """`--use-gui` on phase 9's tree with a cache of its own: the scan
+    runs in the GUI's worker thread on the card while the server
+    answers; the groups equal the CLI's, K1, K3 and K4 launch there;
+    /api/image and /api/analysis from 4 threads at once (a JPEG and
+    three preview-less DNGs, each DNG within the demosaic's bound of the
+    port's CPU rendition); a mark and a move; quit with exit 0.  Then
+    the same again on the same tree and cache: the same groups less the
+    moved file, every hash from the cache (K1 0), K3 and K4 again."""
+    import concurrent.futures
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    photos = tmp / "photos"
+    moved = tmp / "gui_moved"
+    moved.mkdir()
+    env = child_env(tmp, "gui")
+    want = sorted(sorted(g) for g in cli_groups)
+    reset_scan_counts()
+    gui = Gui(["--move-marked", str(moved), str(photos)], env, "gui")
+    try:
+        snap, first_s, done_s = gui.wait_scanned(900)
+        check(group_names(snap) == want, "the GUI's groups differ from the "
+              f"CLI's: {len(snap['groups'])} against {len(want)}")
+        # /api/state latency at this size (host clock)
+        state_s = []
+        for _ in range(20):
+            state_s.append(gui.get("/api/state")[2])
+        state_ms = 1e3 * sorted(state_s)[len(state_s) // 2]
+        names = ["img_0000_copy.jpg", "raw_00.dng", "raw_01.dng", "raw_02.dng"]
+        where = {n: file_index(snap, n) for n in names}
+
+        def fetch(name):
+            g, f = where[name]
+            out = {}
+            for key, q in (("jpeg", ""), ("deep", "&deep=1")):
+                code, body, sec = gui.get(f"/api/image?g={g}&f={f}{q}")
+                check(code == 200, f"/api/image {name}{q}: {code}")
+                out[key], out[key + "_s"] = body, sec
+            code, body, _ = gui.get(f"/api/analysis?g={g}&f={f}")
+            a = json.loads(body)
+            check(code == 200 and len(a["luma"]) == 256 and a["palette"],
+                  f"/api/analysis {name}: {code}")
+            return name, out
+
+        with concurrent.futures.ThreadPoolExecutor(4) as ex:
+            served = dict(ex.map(fetch, names))
+        check(served["img_0000_copy.jpg"]["jpeg"][:2] == b"\xff\xd8",
+              "the JPEG's /api/image is no JPEG")
+        # the same DNGs rendered by the port on the CPU, in a child
+        dngs = [n for n in names if n.endswith(".dng")]
+        args = [x for n in dngs for x in (str(photos / n),
+                                          str(tmp / f"{n}.cpu.png"))]
+        proc = subprocess.run([sys.executable, "-c", _CPU_RENDER, *args],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        check(proc.returncode == 0, f"CPU rendition: {proc.stderr[-3000:]}")
+        worst = []
+        for n in dngs:
+            card = png16(served[n]["deep"])
+            cpu = png16((tmp / f"{n}.cpu.png").read_bytes())
+            check(card.shape == cpu.shape == (240, 320, 3),
+                  f"{n}: {card.shape} against {cpu.shape}")
+            diff = np.abs(card - cpu) / 257.0      # in u8 levels
+            n_diff = int(np.count_nonzero(diff))
+            check(diff.max() <= 1 and n_diff <= 1e-4 * diff.size,
+                  f"{n}: card against CPU max {diff.max()} levels on "
+                  f"{n_diff} of {diff.size} values")
+            worst.append((float(diff.max()), n_diff))
+        # one cold request each, after the concurrent ones
+        jpeg_s = gui.get("/api/image?g=%d&f=%d" % file_index(
+            snap, "img_0035_copy.jpg"))[2]
+        dng_s = gui.get("/api/image?g=%d&f=%d" % file_index(
+            snap, "raw_03.dng"))[2]
+        # mark a member of a planted group of three, move it
+        victim = "img_0000_bright.png"
+        gui.intent("select", list(file_index(snap, victim)))
+        check(gui.intent("toggle_mark")["marked"] == 1, "mark not taken")
+        check(gui.intent("move_marked")["pending_confirm"] == "move",
+              "move not armed")
+        after = gui.intent("move_marked")
+        check((moved / victim).is_file() and not (photos / victim).exists(),
+              f"{victim} not moved: {after['status']}")
+        err = gui.quit()
+    finally:
+        gui.stop()
+    launches = kernel_counts(err)
+    check(all(launches[k] > 0 for k in launches),
+          f"a kernel never launched in the GUI's scan: {launches}")
+    phase("gui", f"--use-gui on {sum(1 for _ in photos.iterdir()) + 1} files: "
+          f"groups = the CLI's ({len(want)}); launches {launches}; "
+          f"4 concurrent clients: JPEG and 3 DNGs served, DNG card against "
+          f"CPU (max levels, values apart) {worst} (gate: <=1 on <=1e-4); "
+          f"{victim} marked and moved; quit -> exit 0")
+
+    # the same tree and cache again: a cached rescan
+    want = sorted(sorted(n for n in g if n != victim) for g in cli_groups)
+    reset_scan_counts()
+    gui = Gui([str(photos)], env, "gui-rescan")
+    try:
+        snap, re_first_s, re_done_s = gui.wait_scanned(900)
+        check(group_names(snap) == want, "the rescan's groups differ: "
+              f"{len(snap['groups'])} against {len(want)}")
+        err = gui.quit()
+    finally:
+        gui.stop()
+    relaunch = kernel_counts(err)
+    check(relaunch["pdq_hash_kernel"] == 0,
+          f"K1 launched on a fully cached rescan: {relaunch}")
+    check(relaunch["hamming_rowcount_kernel"] > 0
+          and relaunch["hamming_extract_kernel"] > 0,
+          f"K3 or K4 did not launch on the rescan: {relaunch}")
+    cache = re.findall(r"\[CACHE\][^\n]*", err)
+    phase("gui", f"cached rescan: the same {len(want)} groups, launches "
+          f"{relaunch}; {' | '.join(cache)}")
+    phase("gui", f"host clock: start to first /api/state {first_s:.2f} s, "
+          f"to scan done {done_s:.2f} s; rescan start to scan done "
+          f"{re_done_s:.2f} s (first answer {re_first_s:.2f} s); /api/state "
+          f"median {state_ms:.2f} ms with {len(cli_groups)} groups; cold "
+          f"/api/image JPEG {jpeg_s * 1e3:.1f} ms, DNG {dng_s * 1e3:.1f} ms; "
+          f"phase {time.perf_counter() - t_phase:.1f} s; card: {card_line()}")
+
+
+def phase_tui(tmp: Path):
+    """`--use-tui` on the card through a pseudo-terminal, on 300 files
+    with two planted pairs (more than 256 hashes, so the edge search runs
+    on the card and not in the host's brute force): the group list
+    renders, the sort menu opens and closes, z quits with exit 0, and
+    the stderr (a file, off the terminal) shows K1, K3 and K4 launched.
+    Then `--view --use-gui` on the same directory lists its files and
+    quits with exit 0."""
+    import pty
+    import select
+
+    import numpy as np
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    d = tmp / "tui"
+    d.mkdir()
+    rng = np.random.default_rng(SEED + 7)
+    for k in range(296):
+        Image.fromarray(textured_rgb(rng, (160, 120))).save(
+            d / f"t_{k:03d}.png", compress_level=1)
+    for k in (3, 150):
+        Image.fromarray(np.asarray(Image.open(d / f"t_{k:03d}.png"))).save(
+            d / f"t_{k:03d}_copy.jpg", quality=92)
+    for k in (7, 9):        # two files past the pairs: 300 in all
+        Image.fromarray(textured_rgb(rng, (200, 150))).save(
+            d / f"u_{k}.png")
+    env = {**child_env(tmp, "tui"), "TERM": "xterm-256color", "LINES": "40",
+           "COLUMNS": "120"}
+    err_path = tmp / "tui_stderr.txt"
+    reset_scan_counts()
+    fd, slave = pty.openpty()
+    t0 = time.perf_counter()
+    with err_path.open("w") as err_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "rupphash_tpu_torch", "--use-tui", str(d)],
+            cwd=ROOT, env=env, stdin=slave, stdout=slave, stderr=err_file,
+            close_fds=True, start_new_session=True)
+    os.close(slave)
+    screen = b""
+
+    def read_until(needle: bytes, timeout: float):
+        nonlocal screen
+        end = time.monotonic() + timeout
+        while needle not in screen and time.monotonic() < end:
+            r, _, _ = select.select([fd], [], [], 0.3)
+            if r:
+                try:
+                    chunk = os.read(fd, 65536)
+                except OSError:
+                    break
+                if not chunk:
+                    break
+                screen += chunk
+        return needle in screen
+
+    try:
+        check(read_until(b"-- Group 1", 600), "the TUI drew no group list:\n"
+              + err_path.read_text()[-3000:])
+        up_s = time.perf_counter() - t0
+        check(read_until(b"t_150_copy.jpg", 30), "a planted pair is missing")
+        os.write(fd, b"s")
+        check(read_until(b"Sort order", 30), "the sort menu did not open")
+        os.write(fd, b"\x1b")
+        time.sleep(0.5)
+        os.write(fd, b"z")
+        rc = proc.wait(timeout=60)
+    finally:
+        os.close(fd)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    err = err_path.read_text()
+    check(rc == 0, f"--use-tui exited {rc}:\n{err[-3000:]}")
+    launches = kernel_counts(err)
+    check(all(launches[k] > 0 for k in launches),
+          f"a kernel never launched in the TUI's scan: {launches}")
+    phase("tui", f"--use-tui on 300 files: list drawn {up_s:.1f} s after "
+          f"the start, both planted pairs shown, sort menu opened and "
+          f"closed, z -> exit 0; launches {launches}")
+
+    gui = Gui(["--view", str(d)], env, "view-gui")
+    try:
+        snap = gui.state()
+        n = sum(len(g["files"]) for g in snap["groups"])
+        check(n == 300, f"--view --use-gui lists {n} files, want 300")
+        err = gui.quit()
+    finally:
+        gui.stop()
+    phase("tui", f"--view --use-gui: {n} files listed, quit -> exit 0; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 XTRANS = [[1, 2, 1, 1, 0, 1], [0, 1, 0, 2, 1, 2], [1, 2, 1, 1, 0, 1],
@@ -1502,25 +1930,13 @@ def phase_serve_cli():
              str(photos), "--port", "0", "--index-file", str(index_file)],
             cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
             stderr=subprocess.PIPE, text=True)
-        lines: list[str] = []
-        ready = threading.Event()
-
-        def read_stderr():
-            for line in proc.stderr:
-                lines.append(line)
-                if "service at http://" in line:
-                    ready.set()
-
-        reader = threading.Thread(target=read_stderr, daemon=True)
-        reader.start()
+        err_lines = StderrLines(proc.stderr)
         try:
-            check(ready.wait(600), "the service printed no URL:\n"
-                  + "".join(lines[-40:]))
+            port = int(err_lines.wait_for(
+                r"service at http://[^:]+:(\d+)/v1/", 600).group(1))
             up_s = time.perf_counter() - t0
-            port = int(re.search(r"service at http://[^:]+:(\d+)/v1/",
-                                 "".join(lines)).group(1))
             m = re.search(r"indexed (\d+) images \((\d+) failures\)",
-                          "".join(lines))
+                          err_lines.text())
             check(m is not None and int(m.group(1)) == n_files
                   and m.group(2) == "0",
                   f"scan of {n_files} files: {m and m.group(0)}")
@@ -1543,16 +1959,13 @@ def phase_serve_cli():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-            reader.join(timeout=30)
-        err = "".join(lines)
+            err_lines.thread.join(timeout=30)
+        err = err_lines.text()
         check(rc == 0, f"--serve exited {rc}:\n{err[-3000:]}")
         ix = serve.HashIndex.load(index_file)
         check(len(ix) == n_files + 1 and str(late) in ix.paths,
               f"index file holds {len(ix)} hashes, want {n_files + 1}")
-        kern = re.findall(r"\[KERNELS\] (.*)", err)
-        check(kern, "--serve printed no [KERNELS] line")
-        launches = {k: int(v) for k, v in
-                    (kv.split("=") for kv in kern[-1].split())}
+        launches = kernel_counts(err)
         check(launches["pdq_hash_kernel"] > 0, f"K1 never launched: {launches}")
         phase("serve-cli", f"--serve on {n_files} files (10 preview-less "
               f"DNGs): URL after {up_s:.1f} s, JPEG and DNG queries matched, "
@@ -1587,7 +2000,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     k5 = phase_k5(dev)
     phase_demosaic(dev)
-    launches = phase_e2e()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        launches, cli_groups = phase_e2e(Path(tmp))
+        phase_gui(Path(tmp), cli_groups)
+        phase_tui(Path(tmp))
     phase_serve(dev)
     phase_serve_cli()
     launches.update(phase_tools())

@@ -1,16 +1,18 @@
-"""Command-line frontend of the port: scan, group and print; serve.
+"""Command-line frontend of the port: scan, group, print, browse; serve.
 
 The flags (plus `--device`), the parser and the output formats are the
 JAX package's (rupphash_tpu/cli.py:28-268, copied here with
 `build_parser`, `print_groups`, `run_interactive_delete`,
-`show_exif_tags` and `_open_store`).  The port runs the duplicate-scan
-route: scan + group + print (or --rehash-only, or the interactive
---delete prompt), the near-duplicate service (--serve, serve.py) and
-the cache management flags (--prune, --show-ignored, --unignore).  The
-scan, the service and --show-build-info run on the card and exit 3
-without one, unless `--device cpu` asks for the plain versions on the
-CPU.  The view, TUI and GUI routes are not ported yet and exit with
-status 2 and a message naming the flag.
+`show_exif_tags` and `_open_store`).  Every route of the JAX package
+runs here: scan + group + print (or --rehash-only, or the interactive
+--delete prompt), the curses browser after the scan (--use-tui), the
+web GUI that serves while the scan streams in (--use-gui), view mode
+without similarity checking (--view, --view-flatten, --shuffle,
+--slideshow; in the TUI, or in the web viewer with --use-gui), the
+near-duplicate service (--serve, serve.py) and the cache management
+flags (--prune, --show-ignored, --unignore).  Every route but the
+cache flags and --show-exif-tags runs on the card and exits 3 without
+one, unless `--device cpu` asks for the plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -226,11 +228,6 @@ def _open_store(args):
                       cfg["_master_key_bytes"])
 
 
-_NOT_PORTED = (("view", "--view"), ("view_flatten", "--view-flatten"),
-               ("shuffle", "--shuffle"), ("slideshow", "--slideshow"),
-               ("use_gui", "--use-gui"), ("use_tui", "--use-tui"))
-
-
 def show_build_info():
     import json
     import platform
@@ -322,6 +319,56 @@ def cache_command(args) -> int | None:
     return 0
 
 
+def run_view(args, store) -> int:
+    """View mode: browse the listed files without similarity checking,
+    in the TUI or, with --use-gui, in the web viewer (the reference's
+    route, rupphash_tpu/cli.py:368-402)."""
+    from .grouping.engine import GroupInfo
+    from .pipeline import view as viewmod
+
+    enrichment = [None]  # previous pool, stopped on relist
+
+    def relist(paths):
+        """List + enrich; one definition serves the initial listing and
+        the GUI directory picker."""
+        if enrichment[0] is not None:
+            enrichment[0].stop()
+        # plain --view lists one directory level; only --view-flatten
+        # descends
+        recs, _ = viewmod.list_view(
+            paths, recursive=bool(args.view_flatten),
+            sort="random" if args.shuffle else args.sort, store=store)
+        enr = viewmod.Enrichment(recs, store=store)
+        enr.start()
+        enrichment[0] = enr
+        return ([recs] if recs else []), ([GroupInfo()] if recs else [])
+
+    groups, infos = relist(args.paths)
+    if args.use_gui:
+        from .gui import server as guiserver
+        return guiserver.run_gui(groups, infos, args, store=store,
+                                 luts=args.luts3d,
+                                 relist_fn=lambda p: relist([p]))
+    from . import tui
+    return tui.run(groups, infos, args, store=store)
+
+
+def register_and_filter(store, groups, infos):
+    """Assign stable group UUIDs and drop ignored members, as the GUI's
+    reload does (rupphash_tpu/cli.py:410-423)."""
+    if store is None or not groups:
+        return groups, infos
+    store.register_duplicate_groups(
+        [[(f.content_hash, f.pdqhash) for f in g] for g in groups])
+    kept_groups, kept_infos = [], []
+    for g, inf in zip(groups, infos):
+        g2 = [f for f in g if not store.is_ignored(f.content_hash)]
+        if len(g2) > 1:
+            kept_groups.append(g2)
+            kept_infos.append(inf)
+    return kept_groups, kept_infos
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -333,12 +380,6 @@ def main(argv=None) -> int:
     if args.show_exif_tags:
         show_exif_tags()
         return 0
-    for attr, flag in _NOT_PORTED:
-        if getattr(args, attr) not in (None, False):
-            print(f"{flag} is not ported to rupphash_tpu_torch yet; "
-                  "use python -m rupphash_tpu", file=sys.stderr)
-            return 2
-
     similarity = args.similarity if args.similarity is not None else 40
     if not 0 <= similarity <= 63:
         print("Similarity must be 0-63 for PDQ hash.", file=sys.stderr)
@@ -369,11 +410,30 @@ def main(argv=None) -> int:
                   file=sys.stderr, flush=True)
 
     try:
+        if args.slideshow is not None and args.slideshow <= 0:
+            print("Slideshow interval must be positive.", file=sys.stderr)
+            return 2
+        if (args.view or args.view_flatten or args.shuffle
+                or args.slideshow is not None):
+            return run_view(args, store)
+
         if args.rehash_only:
             _, stats = scanmod.scan(args.paths, cfg, store, progress)
             print(f"\nRehashed {stats.hashed} files "
                   f"({stats.failed} failures).", file=sys.stderr)
             return 0
+
+        if args.use_gui:
+            # serve at once; the scan streams in from a worker thread
+            from .gui import server as guiserver
+
+            def scan_fn(progress_cb):
+                groups, infos, records, stats = scanmod.scan_and_group(
+                    args.paths, cfg, store, progress_cb)
+                return register_and_filter(store, groups, infos)
+
+            return guiserver.run_gui_scanning(args, store, scan_fn,
+                                              luts=args.luts3d)
 
         groups, infos, records, stats = scanmod.scan_and_group(
             args.paths, cfg, store, progress)
@@ -387,6 +447,9 @@ def main(argv=None) -> int:
                 [[(f.content_hash, f.pdqhash) for f in g]
                  for g in groups])
 
+        if args.use_tui:
+            from . import tui
+            return tui.run(groups, infos, args, store=store)
         if args.delete:
             run_interactive_delete(groups, infos, args.relative_times,
                                    args.use_trash)

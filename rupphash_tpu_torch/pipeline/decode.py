@@ -9,8 +9,9 @@ full demosaic only for preview-less raws (and for CR3 the preview/full
 order of `cr3.decode_cr3`).  The full raw is built from the jax-free
 parsers (`dng.parse_dng`, `rawcontainers.parse_raw_container`,
 `cr3.parse_cr3`) followed by the port's `ops/demosaic.process_raw` on
-the caller's `device`: a spawned decode worker passes "cpu", the main
-process its own device.
+the caller's `device`: a spawned decode worker passes "cpu"; the main
+process and the GUI's request threads take the default, the process's
+device.
 
 Outputs are numpy arrays: RGB (H, W, 3), RGBA (H, W, 4) or L (H, W),
 always uint8, plus the original resolution.  This module imports no
@@ -290,11 +291,13 @@ def sniff_decode_bytes(data: bytes, device) -> np.ndarray | None:
     return img
 
 
-def load_image(path: str | os.PathLike, data: bytes | None = None, *,
-               device):
+def load_image(path: str | os.PathLike, data: bytes | None = None,
+               prefer_full_raw: bool = False, *, device=None):
     """(array, (width, height)) or (None, None), as the reference's
-    load_image with its default rendition (a RAW file's preview first,
-    the full demosaic on `device` for preview-less raws)."""
+    load_image: a RAW file's preview first and the full demosaic only
+    for preview-less raws, or with `prefer_full_raw` (the GUI's quality
+    mode) the full demosaic first.  The demosaic runs on `device`
+    (default: the process's device, device.get())."""
     p = Path(path)
     if data is None:
         try:
@@ -303,8 +306,10 @@ def load_image(path: str | os.PathLike, data: bytes | None = None, *,
             return None, None
     ext = p.suffix.lower().lstrip(".")
     if is_raw_ext(p):
-        img = extract_largest_jpeg(data)
+        img = full_raw(data, device) if prefer_full_raw else None
         if img is None:
+            img = extract_largest_jpeg(data)
+        if img is None and not prefer_full_raw:
             # preview-less raw: parse + the port's demosaic
             img = full_raw(data, device)
         if img is None:

@@ -19,6 +19,7 @@ from rupphash_tpu.cache.store import CacheStore
 from rupphash_tpu.pipeline import scan as ref_scan
 from rupphash_tpu_torch import cli, device
 from rupphash_tpu_torch.pipeline import scan
+from torch_child import Lines, PtyChild, start_gui, stop
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -118,8 +119,10 @@ def test_jax_cache_read_by_port_as_full_hits(photos):
 def test_cli_surface(capsys):
     assert cli.main(["--similarity", "99", "/tmp"]) == 2
     assert cli.main([]) == 2
-    assert cli.main(["--use-tui", "/tmp"]) == 2
-    assert "--use-tui is not ported" in capsys.readouterr().err
+    assert cli.main(["--use-tui", "/tmp"]) == 3   # no card, CPU not asked for
+    assert "no CUDA device" in capsys.readouterr().err
+    assert cli.main(["--slideshow", "0", "--device", "cpu", "/tmp"]) == 2
+    assert "Slideshow interval must be positive" in capsys.readouterr().err
     assert cli.main(["--serve"]) == 2
     assert "paths required" in capsys.readouterr().err
     assert cli.main(["--show-build-info"]) == 3   # no card, CPU not asked for
@@ -221,15 +224,9 @@ def test_serve_cli_answers_and_saves_on_sigint(photos, tmp_path):
          "--device", "cpu", "--port", "0", "--index-file", str(index_file)],
         cwd=ROOT, env=env, stderr=subprocess.PIPE, text=True)
     try:
-        lines = []
-        for line in proc.stderr:
-            lines.append(line)
-            m = re.search(r"service at (http://\S+/v1/)", line)
-            if m:
-                break
-        assert m, "".join(lines)
-        url = m.group(1)
-        assert any("indexed 12 images (1 failures)" in ln for ln in lines)
+        err = Lines(proc.stderr)
+        url = err.wait_for(r"service at (http://\S+/v1/)", 300).group(1)
+        assert "indexed 12 images (1 failures)" in err.text()
         with urllib.request.urlopen(url + "stats", timeout=60) as r:
             assert json.loads(r.read())["indexed"] == 12
         req = urllib.request.Request(url + "query",
@@ -244,13 +241,116 @@ def test_serve_cli_answers_and_saves_on_sigint(photos, tmp_path):
         with urllib.request.urlopen(req, timeout=60) as r:
             assert json.loads(r.read())["size"] == 13
         proc.send_signal(signal.SIGINT)
-        rest = proc.stderr.read()
-        assert proc.wait(timeout=60) == 0, rest
+        rc = proc.wait(timeout=60)
+        rest = err.finish(60)
+        assert rc == 0, rest
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        stop(proc)
     assert "saved index (13 hashes)" in rest
     assert re.search(r"\[KERNELS\] pdq_hash_kernel=0 ", rest)  # CPU: plain
     ix = serve.HashIndex.load(index_file)
     assert len(ix) == 13 and ix.paths.count(str(photos / "c.png")) == 2
+
+
+# --- the frontends: view mode, TUI, web GUI ---------------------------------
+
+_GUI_ROUTES = {"use-gui": ["--use-gui"],
+               "view-flatten": ["--view-flatten", "--use-gui"],
+               "shuffle": ["--shuffle", "--use-gui"],
+               "slideshow": ["--slideshow", "2", "--use-gui"]}
+_TUI_ROUTES = {"use-tui": ["--use-tui"], "view": ["--view"]}
+
+
+def _frontend_env(tmp_path, name):
+    return {**os.environ, "PYTHONPATH": str(ROOT), "JAX_PLATFORMS": "cpu",
+            "CUDA_VISIBLE_DEVICES": "", "HOME": str(tmp_path / name),
+            "RUPPHASH_CONFIG_DIR": str(tmp_path / name / "cfg"),
+            "RUPPHASH_CACHE_DIR": str(tmp_path / name / "cache"),
+            "TERM": "xterm-256color", "LINES": "40", "COLUMNS": "160"}
+
+
+def _argv(module, route_args, photos):
+    extra = ["--device", "cpu"] if module == "rupphash_tpu_torch" else []
+    return [sys.executable, "-m", module, *route_args, *extra, str(photos)]
+
+
+def _settled(snap):
+    """Scan done, and in view mode every decodable file enriched."""
+    return snap["scanning"] is None and all(
+        f["res"] is not None for g in snap["groups"] for f in g["files"]
+        if f["name"] != "corrupt.jpg")
+
+
+@pytest.mark.parametrize("route", sorted(_GUI_ROUTES))
+def test_gui_routes_serve_the_reference_state(route, photos, tmp_path):
+    """Each web-GUI route of the port on the CPU serves the /api/state
+    that the JAX package's serves for the same directory (the shuffled
+    listing as a set), marks a file and quits with exit 0."""
+    states = {}
+    for module in ("rupphash_tpu", "rupphash_tpu_torch"):
+        proc, err, gui = start_gui(
+            _argv(module, _GUI_ROUTES[route], photos),
+            _frontend_env(tmp_path, module), cwd=ROOT)
+        try:
+            snap = gui.wait_until(_settled, 300)
+            snap = gui.state()       # past the settle, no drift left
+            snap.pop("rev")
+            if route == "shuffle":
+                for g in snap["groups"]:
+                    g["files"].sort(key=lambda f: f["name"])
+                    for f in g["files"]:   # "sel" follows the cursor
+                        f.pop("cls")
+                snap.pop("cursor")
+            states[module] = snap
+            assert gui.intent("toggle_mark")["marked"] == 1
+            assert gui.intent("quit")["quit"]
+            assert proc.wait(timeout=60) == 0, err.finish(30)
+            assert "scan failed" not in err.text()
+        finally:
+            stop(proc)
+    assert states["rupphash_tpu_torch"] == states["rupphash_tpu"]
+    names = sorted(f["name"] for g in states["rupphash_tpu"]["groups"]
+                   for f in g["files"])
+    if route == "use-gui":
+        assert sorted(len(g["files"]) for g in states["rupphash_tpu"][
+            "groups"]) == [3, 4]
+    else:
+        assert len(names) == 13 and "corrupt.jpg" in names
+    assert (states["rupphash_tpu"]["slideshow"]
+            == (2.0 if route == "slideshow" else None))
+
+
+@pytest.mark.parametrize("route", sorted(_TUI_ROUTES))
+def test_tui_routes_render_the_reference_list(route, photos, tmp_path):
+    """Each curses route of the port on the CPU, on a pseudo-terminal:
+    the list shows the files the JAX package's shows, the sort menu
+    opens and closes, the rename prompt takes multi-byte input, and z
+    quits with exit 0 (no file renamed)."""
+    shown = {}
+    for module in ("rupphash_tpu", "rupphash_tpu_torch"):
+        child = PtyChild(_argv(module, _TUI_ROUTES[route], photos),
+                         _frontend_env(tmp_path, module), cwd=ROOT)
+        try:
+            child.wait_for(b"a.png", 300)
+            child.read_for(1.0)
+            shown[module] = sorted(set(re.findall(
+                rb"[a-z_0-9]+\.(?:png|jpg)", child.out)))
+            child.send(b"s")
+            assert b"Sort order" in child.out, child.out[-1500:]
+            child.send(b"\x1b")
+            child.send(b"r")                    # the rename prompt
+            child.send("é".encode())            # multi-byte input
+            assert "é".encode() in child.out, child.out[-1500:]
+            child.send(b"\x1b")
+            child.send(b"z")
+        finally:
+            rc = child.close(60)
+        assert rc == 0, child.out[-2000:]
+    assert sorted(p.name for p in photos.iterdir()) == sorted(
+        p.name for p in photos.iterdir() if "é" not in p.name)
+    assert shown["rupphash_tpu_torch"] == shown["rupphash_tpu"]
+    if route == "use-tui":
+        assert b"c.png" not in shown["rupphash_tpu"]
+        assert b"b_mirror.png" in shown["rupphash_tpu"]
+    else:
+        assert b"c.png" in shown["rupphash_tpu"]

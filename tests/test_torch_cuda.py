@@ -564,3 +564,68 @@ def test_k5_at_a_bandwidth_bound_size(dev):
     want = restack.restack_plain(x, 288)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_gui_scans_on_cuda_and_serves_a_dng_like_the_cpu(dev, tmp_path,
+                                                          monkeypatch):
+    """The web GUI in process on the card: its worker thread scans a
+    directory of 300 textured PNGs with a planted pair and a preview-less
+    DNG with a PNG twin (more than 256 hashes, so the edge search runs on
+    the card), launching K1, K3 and K4 from that thread; /api/image of
+    the DNG from 4 threads at once matches the port's CPU rendition
+    within the demosaic's bound (at most 1 u8 level on at most 1e-4 of
+    the values); quit ends the server."""
+    import concurrent.futures
+    import sys
+    from pathlib import Path
+
+    from PIL import Image
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    from torch_child import gui_in_thread, png16
+
+    sys.path.insert(0, str(Path(__file__).parent.parent))
+    import chip_smoke
+    from rupphash_tpu_torch import cli
+    from rupphash_tpu_torch.pipeline import decode
+
+    monkeypatch.setenv("RUPPHASH_CONFIG_DIR", str(tmp_path / "cfg"))
+    monkeypatch.setenv("RUPPHASH_CACHE_DIR", str(tmp_path / "cache"))
+    d = tmp_path / "photos"
+    d.mkdir()
+    rng = np.random.default_rng(11)
+    for k in range(297):
+        Image.fromarray(chip_smoke.textured_rgb(rng, (160, 120))).save(
+            d / f"t_{k:03d}.png", compress_level=1)
+    Image.open(d / "t_005.png").save(d / "t_005_copy.jpg", quality=92)
+    rgb, dng = chip_smoke.dng_scene(rng)
+    (d / "raw.dng").write_bytes(dng)
+    Image.fromarray(rgb).save(d / "raw_twin.png")
+    for fn in (pdq_cuda.pdq_hash, hamming_cuda.scan_row_counts,
+               hamming_cuda.extract_rows_packed):
+        fn.launches = 0
+    t, rc, gui = gui_in_thread(cli.main, [str(d)])
+    snap = gui.wait_until(lambda s: s["scanning"] is None, 600)
+    assert not snap["status"].startswith("scan failed"), snap["status"]
+    got = sorted(sorted(f["name"] for f in g["files"]) for g in snap["groups"])
+    assert got == [["raw.dng", "raw_twin.png"], ["t_005.png", "t_005_copy.jpg"]]
+    assert pdq_cuda.pdq_hash.launches > 0
+    assert hamming_cuda.scan_row_counts.launches == 1
+    assert hamming_cuda.extract_rows_packed.launches > 0
+    g, f = next((gi, fi) for gi, grp in enumerate(snap["groups"])
+                for fi, x in enumerate(grp["files"]) if x["name"] == "raw.dng")
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        bodies = list(ex.map(lambda q: gui.get(
+            f"/api/image?g={g}&f={f}&deep=1&s={q}"), (2048, 2047, 2046, 2045)))
+    assert all(b[0] == 200 for b in bodies)
+    want, _ = decode.load_image(d / "raw.dng", prefer_full_raw=True,
+                                device="cpu")
+    for status, _, body in bodies:
+        card = png16(body).astype(np.int64)
+        diff = np.abs(card - want.astype(np.int64) * 257) / 257.0
+        assert card.shape == want.shape == (240, 320, 3)
+        assert diff.max() <= 1 and np.count_nonzero(diff) <= 1e-4 * diff.size, (
+            diff.max(), np.count_nonzero(diff))
+    assert gui.intent("quit")["quit"]
+    t.join(60)
+    assert not t.is_alive() and rc == [0]

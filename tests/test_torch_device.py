@@ -72,7 +72,9 @@ def test_library_entry_points_raise_without_a_card(name, photos, tmp_path):
 
 @pytest.mark.parametrize("args", [
     [], ["--serve", "--port", "0"], ["--rehash-only"], ["--show-build-info"],
-], ids=["scan", "serve", "rehash-only", "build-info"])
+    ["--use-gui", "--port", "0"], ["--use-tui"], ["--view"],
+], ids=["scan", "serve", "rehash-only", "build-info", "use-gui", "use-tui",
+        "view"])
 def test_cli_exits_non_zero_without_a_card(args, photos, tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "rupphash_tpu_torch", "--no-cache", *args,
@@ -81,6 +83,7 @@ def test_cli_exits_non_zero_without_a_card(args, photos, tmp_path):
     assert proc.returncode == 3, proc.stderr[-3000:]
     assert "no CUDA device visible" in proc.stderr
     assert "Found" not in proc.stdout and "service at" not in proc.stderr
+    assert "GUI at" not in proc.stderr
 
 
 def test_cli_on_the_cpu_when_asked(photos, tmp_path):

@@ -41,6 +41,19 @@ PORT_MODULES = [
     "rupphash_tpu_torch.tools.selftest",
     "rupphash_tpu_torch.tools.mosaic_repro",
     "rupphash_tpu_torch.tools.prof_nz",
+    "rupphash_tpu_torch.state",
+    "rupphash_tpu_torch.tui",
+    "rupphash_tpu_torch.search",
+    "rupphash_tpu_torch.search_index",
+    "rupphash_tpu_torch.pipeline.view",
+    "rupphash_tpu_torch.pipeline.animated",
+    "rupphash_tpu_torch.pipeline.hdr",
+    "rupphash_tpu_torch.pipeline.palette",
+    "rupphash_tpu_torch.gui.server",
+    "rupphash_tpu_torch.gui.imaging",
+    "rupphash_tpu_torch.gui.lut",
+    "rupphash_tpu_torch.gui.page",
+    "rupphash_tpu_torch.gui.watcher",
 ]
 
 _CHILD = """
@@ -197,6 +210,21 @@ assert sorted(pathlib.Path(m["path"]).name for m in out["matches"]) == [
     "img2.webp", "img2_twin.png"], out
 assert cli.main([str(d), "--no-cache", "--device", "cpu"]) == 0
 assert selftest.main(["--device", "cpu"]) == 0
+sys.path.insert(0, "tests")
+from torch_child import gui_in_thread
+t, rc, gui = gui_in_thread(cli.main, [str(d), "--no-cache", "--device", "cpu"])
+snap = gui.wait_until(lambda s: s["scanning"] is None, 300)
+assert len(snap["groups"]) == 4 and not snap["status"].startswith(
+    "scan failed"), snap["status"]
+assert gui.intent("quit")["quit"]
+t.join(60)
+assert not t.is_alive() and rc == [0], rc
+t, rc, gui = gui_in_thread(cli.main, [str(d), "--view", "--no-cache",
+                                      "--device", "cpu"])
+assert [len(g["files"]) for g in gui.state()["groups"]] == [8]
+assert gui.intent("quit")["quit"]
+t.join(60)
+assert not t.is_alive() and rc == [0], rc
 assert sys.modules["rupphash_tpu"] is None and sys.modules["jax"] is None
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("rupphash_tpu", "jax"))
@@ -208,8 +236,9 @@ print("OK", len(mods))
 def test_port_runs_with_the_jax_package_blocked(tmp_path):
     """With every import of `rupphash_tpu` and of jax failing, every
     module of the port imports, and the scan (JPEG, PNG, WebP and a
-    preview-less DNG, each with a PNG twin), a /v1/query, the CLI and
-    the self-test run on the CPU."""
+    preview-less DNG, each with a PNG twin), a /v1/query, the CLI, the
+    self-test and the web GUI (the scan route and view mode: /api/state,
+    quit) run on the CPU."""
     proc = subprocess.run(
         [sys.executable, "-c", _ALONE_CHILD], cwd=ROOT, capture_output=True,
         text=True, timeout=600,
