@@ -30,6 +30,14 @@ failure exits non-zero:
      against K6 at N=1,000,000 x 8 variants, sim 40, K4's launches over
      that input's hot rows, and the edge search there, its wall split by
      stage, against a host oracle on a sample of rows;
+ 6a. mesh: parallel/sharded.py on virtual meshes of the one card, [card]
+     (1 x 1) and [card] * 4 (2 x 2): the cells' K3 counts at N=1M x 8
+     variants, sim 40 (phase 6's input) bit-identical to one K3 launch,
+     one launch per cell that holds pairs; sharded_find_edges at
+     N=100,000 and 1M equal to find_edges_fast_resident, hot rows
+     included, K4 launched; sharded_pdq_hasher at B=256, 288x512
+     bit-identical to K1 unsharded; full_dedup_step; wall times (one
+     card's: the cells share it, so these are no multi-GPU scaling);
   7. K5 (column restack) against its plain version, bit for bit, at
      W = 128, 256, 288 and at (1, 8192, 8 * 288), 75.5 MB each way,
      beside one PyTorch permute-and-copy: device time a launch (kernel
@@ -43,6 +51,11 @@ failure exits non-zero:
      generated directory of textured images with 60 planted duplicate
      groups and 20 preview-less DNGs with PNG twins (80 groups); checks
      the printed groups and that every kernel launched;
+ 9m. mesh groups: phase 9's tree scanned in a new process whose device
+     list is a 2 x 2 virtual mesh of the card: the engine takes the
+     multi-device route (sharded_find_edges over make_mesh()) and
+     sharded_group_files on the scan's records, both with the CLI's
+     groups;
  9a. gui: `--use-gui` on phase 9's tree with a cache of its own (the
      scan in the GUI's worker thread while the server answers): the
      groups equal the CLI's, K1, K3 and K4 launched; /api/image and
@@ -56,6 +69,10 @@ failure exits non-zero:
      planted pairs: the list draws, the sort menu opens and closes, z
      quits with exit 0, K1, K3 and K4 launched; then `--view --use-gui`
      on the same directory lists its files and quits with exit 0;
+ 9c. multihost: two processes on the one card under gloo (NCCL refuses
+     two ranks on one GPU), each hashing its shard_files share of 32
+     images with K1; allgather_hashes reassembles the unequal shards,
+     and the planted twin pair split across the ranks is the only pair;
  10. serve: NearDupService in process over a 1,000,000-row index
      (planted near copies at distances 0-40, low-quality rows,
      tombstones), ~200 images added through /v1/add, ~200 /v1/query
@@ -63,13 +80,19 @@ failure exits non-zero:
      preview-less DNGs) sent serially and from 8 concurrent clients;
      every answer equal to a host numpy oracle, K1 launched once per
      hash, uploads O(delta); latency, query and K1 times, peak memory;
+     then NearDupService(mesh=...) with the index sharded over a 2 x 2
+     virtual mesh: a /v1/add and a /v1/remove after its first push
+     (uploads O(delta)) and ~50 queries, each answer equal to the
+     one-device query and the host oracle;
  11. serve CLI: `python -m rupphash_tpu_torch --serve DIR --port 0
      --index-file F` on 300 images (10 preview-less DNGs): queried,
      added to, stopped with SIGINT; exit 0, F reloads, K1 launched;
  12. tools: the self-test, mosaic_repro and prof_nz, each as its own
      process, must exit 0; their launch counts show that the self-test
      ran K2, mosaic_repro K5 and prof_nz K6 (which holds K6 against K3
-     and its plain version at N=200,000).
+     and its plain version at N=200,000); then phash_test IMG --pdq and
+     position_test on a JPEG with a GPS position, each its own process,
+     exit 0.
 Then one JSON line with each kernel's numbers (its time, its plain
 version's, its bound on this card from the run's own shapes and what
 sets it, its share of that bound, and the time of one PyTorch call that
@@ -78,8 +101,9 @@ the last line.  Every kernel-vs-plain timing runs plain, kernel, kernel,
 plain on the same inputs and reports the mean of the two of each.  The
 launch counts in the JSON line come from the runs of phase 9 (K1, K3,
 K4) and phase 12 (K2, K5, K6), each a new process whose counts start at
-0; phases 9a and 9b read their own children's counts the same way, and
-phase 10 resets K1's count before it serves and checks it after.
+0; phases 9a, 9b, 9m and 9c read their own children's counts the same
+way, and phases 6a and 10 (one device and mesh) set the counts they
+check to 0 before they drive their path and read them after.
 """
 
 from __future__ import annotations
@@ -765,7 +789,367 @@ def phase_k3_1m(dev, n=1_000_000):
     return ({"k3_1m_ms": k3_ms, "k6_1m_ms": k6_ms,
              "k3_1m_bound_ms": bnd["bound_ms"]},
             {"k4_1m_ms": k4_ms, "k4_1m_launches": -(-len(hot) // chunk),
-             "k4_1m_bound_ms": k4_bnd["bound_ms"]})
+             "k4_1m_bound_ms": k4_bnd["bound_ms"]},
+            (base, var, low, k3[:n, 0].cpu().numpy()))
+
+
+def scan_counts() -> dict:
+    """The launch counts of the scan route's kernels in this process."""
+    from rupphash_tpu_torch.ops import hamming_cuda, pdq_cuda
+
+    return {"pdq_hash_kernel": pdq_cuda.pdq_hash.launches,
+            "hamming_rowcount_kernel": hamming_cuda.scan_row_counts.launches,
+            "hamming_extract_kernel": hamming_cuda.extract_rows_packed.launches}
+
+
+def cells_with_pairs(mesh, n) -> int:
+    """The cells of `mesh` whose block holds a pair i < j < n: K3's
+    launches for one sweep on it."""
+    from rupphash_tpu_torch.ops import hamming_cuda
+    from rupphash_tpu_torch.parallel import sharded
+
+    nq, nb = mesh.shape["q"], mesh.shape["b"]
+    npad = sharded._mesh_npad(n, nq, nb)
+    qs, bs = npad // nq, npad // nb
+    return sum(len(hamming_cuda.sweep_items(
+        n, npad, (q * qs, (q + 1) * qs, b * bs, (b + 1) * bs))) > 0
+        for q, b, _ in mesh.cells())
+
+
+def phase_mesh(dev, big):
+    """The ('q', 'b') mesh of parallel/sharded.py on virtual meshes of the
+    one card, [dev] (1 x 1) and [dev] * 4 (2 x 2): K3 per cell at N=1M x 8
+    variants, sim 40 (phase 6's input) bit-identical to one K3 launch;
+    sharded_find_edges at N=100,000 and 1M equal to
+    find_edges_fast_resident (edges and hot rows); the sharded hasher at
+    B=256, 288x512 bit-identical to K1 unsharded; full_dedup_step.  The
+    launch counts are set to 0 before each run of the path and read after
+    it.  Times are one card's: the cells of a virtual mesh share it."""
+    import numpy as np
+    import torch
+
+    from rupphash_tpu_torch.ops import hamming, pdq_torch
+    from rupphash_tpu_torch.parallel import sharded
+
+    t_phase = time.perf_counter()
+    sim = 40
+    base_1m, var_1m, low_1m, k3_1m = big
+    base_100k, var_100k, low_100k = planted_hashes(100_000, 2000, SEED)
+    single = {}
+    for label, (base, var, low) in (("100k", (base_100k, var_100k, low_100k)),
+                                     ("1M", (base_1m, var_1m, low_1m))):
+        var_dev = torch.from_numpy(var).to(dev)
+        single[label] = hamming.find_edges_fast_resident(
+            var_dev, low, similarity=sim, return_stats=True)
+        del var_dev
+    for n_dev in (1, 4):
+        mesh = sharded.make_mesh(n_dev, devices=[dev] * n_dev)
+        n = len(base_1m)
+        inputs = sharded.mesh_inputs(mesh, var_1m, low_1m)
+        reset_scan_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts = sharded.sharded_row_counts(mesh, sim)(inputs)
+        torch.cuda.synchronize()
+        rc_s = time.perf_counter() - t0
+        got = scan_counts()
+        cells = cells_with_pairs(mesh, n)
+        check(np.array_equal(counts[:n].cpu().numpy(), k3_1m),
+              f"mesh {mesh.shape}: row counts at N=1M differ from one K3 "
+              f"launch's")
+        check(got["hamming_rowcount_kernel"] == cells,
+              f"mesh {mesh.shape}: K3 launched {got} times, {cells} cells "
+              f"hold pairs")
+        del inputs, counts
+        torch.cuda.empty_cache()
+        runs = {}
+        # host arrays (uploaded to the cells) at 100k and 1M, and at 1M
+        # the scan's resident rows as the engine passes them (a tensor on
+        # the card, padded there)
+        for label, run, (base, var, low) in (
+                ("100k", "100k", (base_100k, var_100k, low_100k)),
+                ("1M", "1M host", (base_1m, var_1m, low_1m)),
+                ("1M", "1M resident", (None, var_1m, low_1m))):
+            if base is None:
+                var = torch.from_numpy(var).to(dev)
+            reset_scan_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ei, ej, st = sharded.sharded_find_edges(
+                mesh, base, var, low, similarity=sim, return_stats=True)
+            wall = time.perf_counter() - t0
+            del var
+            e_got = scan_counts()
+            si, sj, sst = single[label]
+            base = base_100k if label == "100k" else base_1m
+            check(np.array_equal(np.sort(ei * len(base) + ej),
+                                 np.sort(si * len(base) + sj)),
+                  f"mesh {mesh.shape} N={label}: {len(ei)} edges, the "
+                  f"one-device search {len(si)}")
+            check(st["hot_rows"] == sst["hot_rows"],
+                  f"mesh {mesh.shape} N={label}: hot rows {st['hot_rows']} "
+                  f"vs {sst['hot_rows']}")
+            check(e_got["hamming_extract_kernel"] > 0
+                  and e_got["hamming_rowcount_kernel"] == cells_with_pairs(
+                      mesh, len(base)),
+                  f"mesh {mesh.shape} N={label}: launches {e_got}")
+            runs[run] = (len(ei), wall, st, e_got)
+            torch.cuda.empty_cache()
+        e100k, e1m = runs["100k"][0], runs["1M resident"][0]
+        st1m, l1m = runs["1M resident"][2:]
+        walls = "; ".join(f"{run} {w * 1e3:.1f} ms ({stage_split(st)})"
+                          for run, (_, w, st, _) in runs.items())
+        phase("mesh", f"{mesh.shape} on {n_dev} x {dev} (virtual): "
+              f"sharded_row_counts N={n} V=8 sim={sim} identical to one K3 "
+              f"launch, K3 launches {got['hamming_rowcount_kernel']} (= cells "
+              f"holding pairs), {rc_s * 1e3:.1f} ms wall; sharded_find_edges "
+              f"N=100k {e100k} edges, N=1M {e1m} edges, each run equal to "
+              f"find_edges_fast_resident with its hot rows "
+              f"({st1m['hot_rows']} at 1M); wall by run: {walls} (the "
+              f"one-device resident search at 1M: "
+              f"{stage_split(single['1M'][2])}); readback "
+              f"{st1m['readback_bytes']} bytes at 1M, launches at 1M {l1m}; "
+              f"card: {card_line()}")
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    lumas = textured_lumas(gen, 256, 288, 512, dev)
+    lumas[31] = lumas[17]
+    want = pdq_torch.pdq_hash_batch(lumas)
+    for n_dev in (1, 4):
+        mesh = sharded.make_mesh(n_dev, devices=[dev] * n_dev)
+        reset_scan_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sharded.sharded_pdq_hasher(mesh, 288, 512)(lumas)
+        torch.cuda.synchronize()
+        hash_ms = (time.perf_counter() - t0) * 1e3
+        k1 = scan_counts()["pdq_hash_kernel"]
+        check(torch.equal(out["dihedral"], want["dihedral"])
+              and torch.equal(out["quality"], want["quality"]),
+              f"mesh {mesh.shape}: sharded hashes differ from K1 unsharded")
+        check(k1 == n_dev, f"mesh {mesh.shape}: K1 launched {k1} times")
+        reset_scan_counts()
+        hashes, quality, cell = sharded.full_dedup_step(mesh, 288, 512)(lumas)
+        step = scan_counts()
+        check(torch.equal(hashes, want["hash"]) and int(cell.sum()) >= 1
+              and step["pdq_hash_kernel"] == n_dev
+              and step["hamming_rowcount_kernel"] > 0,
+              f"mesh {mesh.shape}: full_dedup_step {cell.tolist()} {step}")
+        phase("mesh", f"{mesh.shape}: sharded_pdq_hasher B=256 288x512 "
+              f"bit-identical to K1 unsharded ({k1} K1 launches, "
+              f"{hash_ms:.2f} ms wall); full_dedup_step cell counts "
+              f"{cell.tolist()}, launches {step}; card: {card_line()}")
+    phase("mesh", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+MESH_GROUPS_CHILD = r"""
+import json, sys
+import torch
+from rupphash_tpu_torch import device
+from rupphash_tpu_torch.parallel import sharded
+from rupphash_tpu_torch.pipeline import scan
+dev = device.pin("cuda")
+virtual = [dev] * 4
+sharded.local_devices = lambda: list(virtual)   # a 2 x 2 mesh of the one card
+calls = []
+real = sharded.sharded_find_edges
+def spy(mesh, *a, **k):
+    calls.append(mesh.shape)
+    return real(mesh, *a, **k)
+sharded.sharded_find_edges = spy
+groups, infos, records, stats = scan.scan_and_group([sys.argv[1]],
+                                                    scan.ScanConfig())
+by_engine = [sorted(f.path.name for f in g) for g in groups]
+engine_calls = list(calls)
+mesh_groups, _, edges = sharded.sharded_group_files(
+    sharded.make_mesh(4, devices=virtual), records)
+print(json.dumps({"engine": by_engine, "calls": engine_calls, "edges": edges,
+                  "files": [sorted(f.path.name for f in g)
+                            for g in mesh_groups],
+                  "failed": stats.failed}))
+print("[KERNELS] " + scan.kernel_counts(), file=sys.stderr)
+"""
+
+
+def phase_mesh_groups(tmp: Path, cli_groups: list):
+    """Phase 9's tree in a new process whose device list is a 2 x 2 mesh of
+    the one card: the engine takes the multi-device route
+    (sharded_find_edges over make_mesh()), and sharded_group_files on the
+    scan's records; both give the CLI's groups."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", MESH_GROUPS_CHILD, str(tmp / "photos")],
+        cwd=ROOT, env=child_env(tmp, "mesh"), capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"mesh groups child exited "
+          f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches = kernel_counts(proc.stderr)
+    want = sorted(sorted(g) for g in cli_groups)
+    check(out["calls"] == [{"q": 2, "b": 2}],
+          f"the engine's search did not take the mesh: {out['calls']}")
+    check(sorted(out["engine"]) == want, "the engine's groups on the mesh "
+          "differ from the CLI's")
+    check(sorted(out["files"]) == want, "sharded_group_files' groups differ "
+          "from the CLI's")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel never launched on the mesh route: {launches}")
+    phase("mesh", f"scan of phase 9's tree with a 2 x 2 virtual mesh: the "
+          f"engine took sharded_find_edges, {len(want)} groups = the CLI's; "
+          f"sharded_group_files on its records: the same groups, "
+          f"{out['edges']} edges; launches {launches}; {wall:.1f} s wall "
+          f"(a new process, decode included); card: {card_line()}")
+
+
+MULTIHOST_CHILD = r"""
+import datetime, json, sys
+from pathlib import Path
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, port, corpus = int(sys.argv[1]), sys.argv[2], Path(sys.argv[3])
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+from rupphash_tpu_torch import device
+from rupphash_tpu_torch.ops import pdq_cuda, pdq_torch
+from rupphash_tpu_torch.parallel import multihost
+from rupphash_tpu_torch.pipeline import decode
+dev = device.pin("cuda")
+assert multihost.process_info() == (rank, 2)
+paths = sorted(corpus.glob("*.png"))
+shards = [multihost.shard_files(paths, i, 2, by="hash") for i in range(2)]
+mine = multihost.shard_files(paths, by="hash")
+assert mine == shards[rank]
+lumas = np.stack([decode.prepare_luma_fast(decode.load_image(p)[0])
+                  for p in mine])
+out = pdq_torch.pdq_hash_batch(lumas)
+local_h = out["hash"].cpu().numpy()
+local_v = out["dihedral"].cpu().numpy()
+local_low = out["quality"].cpu().numpy() * 100 < 50
+hashes, variants, low = multihost.allgather_hashes(local_h, local_v, local_low)
+order = [p.name for s in shards for p in s]
+d = np.unpackbits(hashes[:, None] ^ hashes[None], axis=-1).sum(-1)
+ii, jj = np.nonzero(np.triu(d <= 31, k=1))
+print(json.dumps({"rank": rank, "local": len(mine), "total": len(hashes),
+                  "variants": list(variants.shape), "low": int(low.sum()),
+                  "pairs": [[order[i], order[j]] for i, j in zip(ii, jj)],
+                  "k1": pdq_cuda.pdq_hash.launches,
+                  "hashes": hashes.tobytes().hex()}))
+dist.destroy_process_group()
+"""
+
+
+def phase_multihost(tmp: Path):
+    """Two processes on the one card under gloo (NCCL refuses two ranks on
+    one GPU): each hashes its shard_files(by="hash") share of 32 images
+    with K1 on the card, allgather_hashes reassembles the unequal shards
+    in rank order, and the planted twin pair, split across the ranks, is
+    the only pair within distance 31.  Every wait is bounded."""
+    import socket
+
+    import numpy as np
+    from PIL import Image
+
+    sys.path.insert(0, str(ROOT))
+    from rupphash_tpu_torch.parallel import multihost
+
+    names = ["dup_a.png", "dup_b.png"] + [f"f{i:02d}.png" for i in range(30)]
+    rng = np.random.default_rng(SEED + 9)
+    corpus = None
+    for k in range(200):
+        d = tmp / f"multihost_{k:03d}"
+        paths = sorted(d / name for name in names)
+        s0 = {p.name for p in multihost.shard_files(paths, 0, 2, by="hash")}
+        if len({"dup_a.png", "dup_b.png"} & s0) == 1 \
+                and len(s0) * 2 != len(paths):
+            corpus = d
+            break
+    check(corpus is not None, "no corpus directory splits the twins")
+    corpus.mkdir()
+    twin = textured_rgb(rng)
+    for name in names:
+        img = twin if name.startswith("dup_") else textured_rgb(rng)
+        Image.fromarray(img).save(corpus / name)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MULTIHOST_CHILD, str(rank), str(port),
+         str(corpus)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180))
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure("a multihost rank ran past 180 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    wall = time.perf_counter() - t0
+    res = []
+    for p, (out, err) in zip(procs, outs):
+        check(p.returncode == 0, f"multihost rank exited {p.returncode}:\n"
+              f"{err[-3000:]}")
+        res.append(json.loads(out.strip().splitlines()[-1]))
+    check(res[0]["hashes"] == res[1]["hashes"]
+          and res[0]["total"] == len(names)
+          and res[0]["local"] + res[1]["local"] == len(names)
+          and res[0]["local"] != res[1]["local"],
+          f"the gathered hashes differ between ranks or miss rows: "
+          f"{[(r['local'], r['total']) for r in res]}")
+    for r in res:
+        check(r["pairs"] == [["dup_a.png", "dup_b.png"]]
+              or r["pairs"] == [["dup_b.png", "dup_a.png"]],
+              f"rank {r['rank']}: pairs {r['pairs']}")
+        check(r["k1"] > 0 and r["variants"] == [len(names), 8, 32],
+              f"rank {r['rank']}: K1 {r['k1']}, variants {r['variants']}")
+    phase("multihost", f"2 ranks on one card under gloo (NCCL refuses two "
+          f"ranks on one GPU): shards of {res[0]['local']} and "
+          f"{res[1]['local']} images hashed by K1 ({res[0]['k1']} and "
+          f"{res[1]['k1']} launches), gathered to {res[0]['total']} rows on "
+          f"both ranks, the planted twin pair split across them the only "
+          f"pair; {wall:.1f} s wall for both processes; card: {card_line()}")
+
+
+def gps_jpeg(path: Path):
+    """A JPEG whose EXIF holds a position, an altitude and times."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 10)
+    ex = Image.Exif()
+    ex[0x8769] = {36867: "2024:06:21 12:00:00"}
+    ex[0x8825] = {1: "N", 2: (60.0, 10.0, 11.64), 3: "E",
+                  4: (24.0, 56.0, 18.24), 5: 0, 6: 26.0,
+                  7: (10.0, 0.0, 0.0), 29: "2024:06:21"}
+    buf = io.BytesIO()
+    Image.fromarray(textured_rgb(rng)).save(buf, format="JPEG", exif=ex)
+    path.write_bytes(buf.getvalue())
+    return path
+
+
+def run_host_tool(module, args, expect):
+    """One host tool as its own process: exit 0 and `expect` printed."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.run([sys.executable, "-m", module, *map(str, args)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0 and expect in proc.stdout,
+          f"{module} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+          f"{proc.stderr[-2000:]}")
+    for line in proc.stdout.splitlines():
+        phase("tools", f"{module.rsplit('.', 1)[1]}: {line}")
 
 
 def device_ms(fn, reps):
@@ -923,6 +1307,16 @@ def phase_tools():
                       ["hamming_rowcount_mma_kernel",
                        "hamming_rowcount_kernel"])
     launches["hamming_rowcount_mma_kernel"] = got["hamming_rowcount_mma_kernel"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        import numpy as np
+        from PIL import Image
+
+        img = Path(tmp) / "photo.png"
+        Image.fromarray(textured_rgb(np.random.default_rng(SEED))).save(img)
+        run_host_tool("rupphash_tpu_torch.tools.phash_test", [img, "--pdq"],
+                      "PDQ (Hex)")
+        run_host_tool("rupphash_tpu_torch.tools.position_test",
+                      [gps_jpeg(Path(tmp) / "gps.jpg")], "Sun Azimuth")
     return launches
 
 
@@ -1843,9 +2237,11 @@ def phase_serve(dev):
               f"{uploaded} bytes uploaded for {n_req} requests at "
               f"{ix._n} rows: not O(delta)")
 
+        serve_mesh(dev, ix, imgs_dir, imgs, bodies[::4])
+
         lat = np.array([t for _, _, t in serial]) * 1e3
         clat = np.array([t for _, _, t in concurrent]) * 1e3
-        base_dev, st_dev, _, n, _ = ix._device_arrays()
+        [(base_dev, st_dev)], _, n, _ = ix._device_arrays()
         q = torch.from_numpy(golden_variants(bodies[0], dev)[0][None]).to(dev)
         query_ms = cuda_ms(lambda: serve._query_topk(q, base_dev, st_dev, n,
                                                      256, 128), 20)
@@ -1889,6 +2285,86 @@ def phase_serve(dev):
               f"{uploaded} bytes for {n_req} requests after the first push; "
               f"card: {card_line()}")
     return launches
+
+
+def serve_mesh(dev, ix, imgs_dir, imgs, bodies):
+    """NearDupService(mesh=...) over the serve phase's index, its corpus
+    sharded over a 2 x 2 virtual mesh of the card: one /v1/add and one
+    /v1/remove after the mesh's first push (uploads O(delta)), then
+    ~50 /v1/query bodies, each answer equal to the one-device query and
+    to the host oracle.  K1's count is set to 0 before and read after."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from rupphash_tpu_torch import serve
+    from rupphash_tpu_torch.ops import pdq_cuda
+    from rupphash_tpu_torch.parallel import sharded
+
+    mesh = sharded.make_mesh(4, devices=[dev] * 4)
+    svc = serve.NearDupService(ix, roots=[imgs_dir], mesh=mesh)
+    extra = imgs_dir / "mesh_add.png"
+    Image.fromarray(imgs[0]).save(extra)
+    httpd, port = svc.serve()
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        pdq_cuda.pdq_hash.launches = 0
+        push = serve.UPLOAD_BYTES
+        code, _, first_s = http(port, "/v1/query", bodies[0])
+        check(code == 200, f"mesh: first query answered {code}")
+        first_push = serve.UPLOAD_BYTES - push
+        push = serve.UPLOAD_BYTES
+        code, added, _ = http(port, f"/v1/add?path={extra}", b"")
+        check(code == 200, f"mesh: /v1/add answered {code} {added}")
+        gone = imgs_dir / "img_007.png"
+        code, removed, _ = http(port, f"/v1/remove?path={gone}", b"")
+        check(code == 200 and removed["removed"] == 1,
+              f"mesh: /v1/remove answered {code} {removed}")
+        answers = [http(port, "/v1/query", b) for b in bodies]
+        delta = serve.UPLOAD_BYTES - push
+        launches = pdq_cuda.pdq_hash.launches
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+    # the one-device answers come from a copy of the index after the
+    # mutations (save and load keep the live rows in order, so indices
+    # agree), which leaves ix's residency on the mesh
+    ix.save(imgs_dir.parent / "mesh_copy.npz")
+    one = serve.HashIndex.load(imgs_dir.parent / "mesh_copy.npz")
+    t0 = time.perf_counter()
+    oracle = index_oracle(ix)
+    n_match = 0
+    for body, (code, got, _) in zip(bodies, answers):
+        variants, quality = golden_variants(body, dev)
+        sim = 40 if quality >= 50 else 0
+        single = [{"path": p, "distance": d, "index": i}
+                  for i, p, d in one.query(variants[None], sim, 100)[0]]
+        want = oracle(variants, quality)
+        check(code == 200 and got["matches"] == single == want,
+              f"mesh: an answer differs from the one-device query or the "
+              f"oracle: {got} vs {single} vs {want}")
+        n_match += bool(want)
+    check(any(m["path"] == str(extra) for m in answers[0][1]["matches"]),
+          "mesh: the added file is not found")
+    check(launches == 2 + len(bodies),
+          f"mesh: K1 launched {launches} times for {2 + len(bodies)} hashes")
+    check(delta < (2 + len(bodies)) * 4096,
+          f"mesh: {delta} bytes uploaded after the first push: not O(delta)")
+    variants = golden_variants(bodies[0], dev)[0][None]
+    mesh_ms = host_ms(lambda: ix.query(variants, 40, 100, mesh=mesh), 20)
+    one_ms = host_ms(lambda: one.query(variants, 40, 100), 20)
+    shards = ix._dev["shards"]
+    phase("serve", f"mesh {mesh.shape} of {dev} (virtual): first push "
+          f"{first_push} bytes in 4 shards of {len(shards[0][0])} rows, "
+          f"{first_s * 1e3:.1f} ms; /v1/add + /v1/remove + {len(bodies)} "
+          f"queries uploaded {delta} bytes; {len(bodies)} answers "
+          f"({n_match} with matches) equal to the one-device query and the "
+          f"host oracle ({time.perf_counter() - t0:.1f} s); K1 launches "
+          f"{launches}; HashIndex.query {mesh_ms:.3f} ms on the mesh vs "
+          f"{one_ms:.3f} ms on one device (host clock, one card); card: "
+          f"{card_line()}")
 
 
 def phase_serve_cli():
@@ -1993,17 +2469,22 @@ def main() -> int:
     k6 = phase_k6(inputs)
     del batches, inputs
     torch.cuda.empty_cache()
-    k3_1m, k4_1m = phase_k3_1m(dev)
+    k3_1m, k4_1m, big = phase_k3_1m(dev)
     hm["k3"].update(k3_1m)
     k6.update(ms_1m=k3_1m["k6_1m_ms"], bound_ms_1m=k3_1m["k3_1m_bound_ms"])
     hm["k4"].update(k4_1m)
+    torch.cuda.empty_cache()
+    phase_mesh(dev, big)
+    del big
     torch.cuda.empty_cache()
     k5 = phase_k5(dev)
     phase_demosaic(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, cli_groups = phase_e2e(Path(tmp))
+        phase_mesh_groups(Path(tmp), cli_groups)
         phase_gui(Path(tmp), cli_groups)
         phase_tui(Path(tmp))
+        phase_multihost(Path(tmp))
     phase_serve(dev)
     phase_serve_cli()
     launches.update(phase_tools())

@@ -26,6 +26,7 @@ import torch
 
 from .. import device
 from ..ops import hamming
+from ..parallel import sharded
 from ..utils import trace
 
 PDQ_MIN_QUALITY = 50  # scanner.rs:1589
@@ -341,6 +342,16 @@ def group_files(files: list[FileRecord],
         if var_sel is not None:
             trace.debug("GROUP", "device-resident edge search "
                         f"({len(idx_with_hash)} rows, no re-upload)")
+        if len(sharded.local_devices()) > 1:
+            # several devices: the ('q', 'b')-mesh count-then-extract
+            # (parallel/sharded.py), the same edges with the triangle
+            # tiled over every device; resident rows are copied device
+            # to device
+            base, variants = ((None, var_sel) if var_sel is not None
+                              else host_arrays())
+            ei, ej = sharded.sharded_find_edges(
+                sharded.make_mesh(), base, variants, low, similarity)
+        elif var_sel is not None:
             ei, ej = hamming.find_edges_fast_resident(var_sel, low,
                                                       similarity)
         else:

@@ -152,3 +152,19 @@ def stream_ptr(tensor) -> int:
     import torch
 
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def launch(wrapper, kernel: str, entry: str, on, *args):
+    """Launch through the C entry point `entry`: `args`, then the current
+    stream of `on`'s device, with that device made current for the call.
+    The entry points read the device from the runtime (its SM count and
+    the kernel's shared-memory attribute), so without it a tensor on
+    cuda:1 while cuda:0 is current would be launched on cuda:1's stream
+    with cuda:0's settings.  Raises on a CUDA error, then adds one to
+    `wrapper`'s launch count."""
+    import torch
+
+    with torch.cuda.device(on.device):
+        err = getattr(load().lib, entry)(*args, stream_ptr(on))
+    check(err, kernel)
+    count_launch(wrapper)

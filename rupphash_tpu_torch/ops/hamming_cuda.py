@@ -54,17 +54,18 @@ def _pad_rows(n: int) -> int:
 
 def prepare_inputs(base_hashes: np.ndarray,
                    variants: np.ndarray | None,
-                   low_conf: np.ndarray | None):
+                   low_conf: np.ndarray | None, npad: int | None = None):
     """Host-side packing to the kernel layout.  Returns
     (var_bits (V, Npad, nbytes) u8, low (Npad, 1) int32, n, npad) as CPU
-    tensors; query variants in every slot, the base hash in slot 0."""
+    tensors; query variants in every slot, the base hash in slot 0.
+    npad defaults to N rounded up to ROW_ALIGN."""
     n, nbytes = base_hashes.shape
     if variants is None:
         variants = base_hashes[:, None, :]
     v = variants.shape[1]
     if low_conf is None:
         low_conf = np.zeros(n, dtype=bool)
-    npad = _pad_rows(n)
+    npad = npad or _pad_rows(n)
     packed = np.zeros((v, npad, nbytes), dtype=np.uint8)
     packed[:, :n] = np.moveaxis(variants, 1, 0)
     low = np.ones((npad, 1), dtype=np.int32)
@@ -81,13 +82,14 @@ def prepare_inputs_device(base_hashes, variants, low_conf):
     return var_bits.to(dev), low.to(dev), n, npad
 
 
-def prepare_inputs_resident(var_dev: torch.Tensor, low_conf):
+def prepare_inputs_resident(var_dev: torch.Tensor, low_conf,
+                            npad: int | None = None):
     """(N, V, nbytes) u8 variants already on the device (the layout
     pdq_hash_batch emits as 'dihedral') -> padded (V, Npad, nbytes) u8 +
     (Npad, 1) int32 low flags on the same device.  Only the (N,) low
     flags cross from the host."""
     n, v, nbytes = var_dev.shape
-    npad = _pad_rows(n)
+    npad = npad or _pad_rows(n)
     dev = var_dev.device
     var_bits = torch.zeros((v, npad, nbytes), dtype=torch.uint8, device=dev)
     var_bits[:, :n] = var_dev.permute(1, 0, 2)
@@ -104,22 +106,26 @@ def prepare_inputs_resident(var_dev: torch.Tensor, low_conf):
 # K3: count sweep
 # --------------------------------------------------------------------------
 
-def _row_counts_plain(q_tile, b_tile, low_i32, nbits, npad, *, sim, n_total):
+def _row_counts_plain(q_tile, b_tile, low_i32, nbits, npad, *, sim, n_total,
+                      block=None):
     """Shared body of the plain count sweeps: q_tile(q0, q1) gives the
     (V, rows, nbits) and b_tile(b0, b1) the (rows, nbits) +/-1 float32
     tiles; float32 dots are exact for |dot| <= 256.  Only tiles on or
-    above the diagonal are computed."""
+    above the diagonal, and within block = (q_lo, q_hi, b_lo, b_hi)
+    when given, are computed."""
     dev = low_i32.device
     counts = torch.zeros(npad, dtype=torch.int32, device=dev)
     low = low_i32[:, 0] != 0
     rows = torch.arange(npad, device=dev)
     n = min(n_total, npad)
-    for q0 in range(0, n, _PLAIN_QT):
-        q1 = min(q0 + _PLAIN_QT, n)
+    q_lo, q_hi, b_lo, b_hi = block or (0, npad, 0, npad)
+    for q0 in range(q_lo, min(q_hi, n), _PLAIN_QT):
+        q1 = min(q0 + _PLAIN_QT, q_hi, n)
         qv = q_tile(q0, q1)
         qi = rows[q0:q1, None]
-        for b0 in range(q0 - q0 % _PLAIN_BT, n, _PLAIN_BT):
-            b1 = min(b0 + _PLAIN_BT, n)
+        for b0 in range(max(b_lo, q0 - q0 % _PLAIN_BT), min(b_hi, n),
+                        _PLAIN_BT):
+            b1 = min(b0 + _PLAIN_BT, b_hi, n)
             best = torch.matmul(qv, b_tile(b0, b1).T).amax(dim=0)  # (tq, tb)
             dotmin = torch.where(low[q0:q1, None] | low[None, b0:b1],
                                  nbits, nbits - 2 * sim)
@@ -128,13 +134,14 @@ def _row_counts_plain(q_tile, b_tile, low_i32, nbits, npad, *, sim, n_total):
     return counts[:, None]
 
 
-def scan_row_counts_plain(var_bits, low_i32, *, sim=40, n_total=0):
+def scan_row_counts_plain(var_bits, low_i32, *, sim=40, n_total=0,
+                          block=None):
     """Plain PyTorch version of K3 on the packed hashes."""
     v, npad, nbytes = var_bits.shape
     return _row_counts_plain(
         lambda q0, q1: hamming.unpack_bits_pm1(var_bits[:, q0:q1]).float(),
         lambda b0, b1: hamming.unpack_bits_pm1(var_bits[0, b0:b1]).float(),
-        low_i32, nbytes * 8, npad, sim=sim, n_total=n_total)
+        low_i32, nbytes * 8, npad, sim=sim, n_total=n_total, block=block)
 
 
 def _check_low(low_i32, npad, like):
@@ -143,7 +150,7 @@ def _check_low(low_i32, npad, like):
         raise ValueError("low_i32 must be (Npad, 1) int32 beside the hashes")
 
 
-def sweep_items(n_total: int, npad: int) -> np.ndarray:
+def sweep_items(n_total: int, npad: int, block=None) -> np.ndarray:
     """K3's work list: (n_items, 4) int32 rows [q0, b_begin, b_end, 0].
 
     Item k pairs query rows [q0, q0 + SWEEP_QROWS) with base rows
@@ -153,8 +160,26 @@ def sweep_items(n_total: int, npad: int) -> np.ndarray:
     q0 + 1, so no tile lies wholly on or below the diagonal, and end at
     the tile holding n - 1.  Every pair i < j < n falls in exactly one
     item.  Items come in query-tile order, so the short runs near the
-    end of the triangle are taken last."""
+    end of the triangle are taken last.
+
+    block = (q_lo, q_hi, b_lo, b_hi) keeps only the pairs with query row
+    in [q_lo, q_hi) and base row in [b_lo, b_hi): each item cut to the
+    block, empty ones dropped.  Block edges must lie on the tile grid
+    (multiples of SWEEP_QROWS and SWEEP_BROWS), so a cut item is whole
+    tiles of the uncut list: still none wholly on or below the diagonal,
+    and the lists of a grid of blocks hold every pair once."""
     n = min(int(n_total), int(npad))
+    if block is not None:
+        q_lo, q_hi, b_lo, b_hi = block
+        if q_lo % SWEEP_QROWS or q_hi % SWEEP_QROWS or b_lo % SWEEP_BROWS \
+                or b_hi % SWEEP_BROWS:
+            raise ValueError(f"block {block} is off K3's grid of "
+                             f"{SWEEP_QROWS} x {SWEEP_BROWS} rows")
+        items = sweep_items(n_total, npad)
+        items = items[(items[:, 0] >= q_lo) & (items[:, 0] < q_hi)]
+        items[:, 1] = np.maximum(items[:, 1], b_lo)
+        items[:, 2] = np.minimum(items[:, 2], b_hi)
+        return np.ascontiguousarray(items[items[:, 1] < items[:, 2]])
     if n < 2:
         return np.zeros((0, 4), dtype=np.int32)
     q0 = np.arange(0, n - 1, SWEEP_QROWS, dtype=np.int64)
@@ -183,22 +208,26 @@ def sweep_tiles(items: np.ndarray):
                 yield q0, b0, g
 
 
-@functools.lru_cache(maxsize=8)
-def _sweep_items_on(n_total: int, npad: int, dev: torch.device):
-    return torch.from_numpy(sweep_items(n_total, npad)).to(dev)
+@functools.lru_cache(maxsize=64)
+def _sweep_items_on(n_total: int, npad: int, dev: torch.device, block=None):
+    return torch.from_numpy(sweep_items(n_total, npad, block)).to(dev)
 
 
-def scan_row_counts(var_bits, low_i32, *, sim=40, n_total=0):
+def scan_row_counts(var_bits, low_i32, *, sim=40, n_total=0, block=None):
     """var_bits (V, Npad, nbytes) u8; low_i32 (Npad, 1) int32 -> (Npad, 1)
-    int32 per-row match counts over pairs j > i, both < n_total.  CUDA
-    tensors launch K3; CPU tensors take the plain version."""
+    int32 per-row match counts over pairs j > i, both < n_total; with
+    block = (q_lo, q_hi, b_lo, b_hi) only over the pairs of that block
+    (one mesh device's share, parallel/sharded.py), which launches
+    nothing when the block holds no pair.  CUDA tensors launch K3; CPU
+    tensors take the plain version."""
     v, npad, nbytes = var_bits.shape
     if var_bits.dtype != torch.uint8:
         raise ValueError(f"var_bits must be uint8, got {var_bits.dtype}")
     _check_low(low_i32, npad, var_bits)
+    block = None if block is None else tuple(int(x) for x in block)
     if not var_bits.is_cuda:
         return scan_row_counts_plain(var_bits, low_i32, sim=sim,
-                                     n_total=n_total)
+                                     n_total=n_total, block=block)
     if (nbytes not in KERNEL_NBYTES or v not in KERNEL_VARIANTS
             or npad % ROW_ALIGN):
         raise ValueError(f"K3 takes (1|8, k*{ROW_ALIGN}, 8|32) u8, got "
@@ -206,15 +235,15 @@ def scan_row_counts(var_bits, low_i32, *, sim=40, n_total=0):
     if not (var_bits.is_contiguous() and low_i32.is_contiguous()):
         raise ValueError("K3 takes contiguous tensors")
     counts = torch.zeros((npad, 1), dtype=torch.int32, device=var_bits.device)
-    items = _sweep_items_on(int(n_total), npad, var_bits.device)
+    items = _sweep_items_on(int(n_total), npad, var_bits.device, block)
     if len(items):
         next_item = torch.zeros(1, dtype=torch.int32, device=var_bits.device)
-        err = _build.load().lib.rupp_hamming_rowcount(
-            var_bits.data_ptr(), low_i32.data_ptr(), items.data_ptr(),
-            len(items), next_item.data_ptr(), v, nbytes, npad, int(n_total),
-            int(sim), counts.data_ptr(), _build.stream_ptr(var_bits))
-        _build.check(err, "hamming_rowcount_kernel")
-        _build.count_launch(scan_row_counts)
+        _build.launch(
+            scan_row_counts, "hamming_rowcount_kernel",
+            "rupp_hamming_rowcount", var_bits, var_bits.data_ptr(),
+            low_i32.data_ptr(), items.data_ptr(), len(items),
+            next_item.data_ptr(), v, nbytes, npad, int(n_total), int(sim),
+            counts.data_ptr())
     return counts
 
 
@@ -313,12 +342,12 @@ def scan_row_counts_pm1(var_pm1, low_i32, *, sim=40, n_total=0):
     items = _pm1_items_on(int(n_total), npad, var_pm1.device)
     if len(items):
         next_item = torch.zeros(1, dtype=torch.int32, device=var_pm1.device)
-        err = _build.load().lib.rupp_hamming_rowcount_mma(
-            var_pm1.data_ptr(), low_i32.data_ptr(), items.data_ptr(),
-            len(items), next_item.data_ptr(), v, nbits, npad, int(n_total),
-            int(sim), counts.data_ptr(), _build.stream_ptr(var_pm1))
-        _build.check(err, "hamming_rowcount_mma_kernel")
-        _build.count_launch(scan_row_counts_pm1)
+        _build.launch(
+            scan_row_counts_pm1, "hamming_rowcount_mma_kernel",
+            "rupp_hamming_rowcount_mma", var_pm1, var_pm1.data_ptr(),
+            low_i32.data_ptr(), items.data_ptr(), len(items),
+            next_item.data_ptr(), v, nbits, npad, int(n_total), int(sim),
+            counts.data_ptr())
     return counts
 
 
@@ -361,8 +390,10 @@ def extract_rows_packed(q_bits, base_bits, qlow, blow, qidx, *, sim=40,
                         n_total=0):
     """q_bits (V, MQ, nbytes) u8 hot-row variants; base_bits (Npad, nbytes)
     u8 (variant slot 0); qlow (MQ, 1) / blow (Npad, 1) int32; qidx (MQ, 1)
-    int32 global row indices (>= n_total rows inert).  Returns (MQ,
-    Npad/8) u8 packed match masks.  CUDA tensors launch K4; CPU tensors
+    int32 row indices counted from base row 0 (>= n_total rows inert;
+    negative where base_bits is a slice of the rows that starts past the
+    query row, as on a mesh device).  Returns (MQ, Npad/8) u8 packed
+    match masks.  CUDA tensors launch K4; CPU tensors
     take the plain version."""
     v, mq, nbytes = q_bits.shape
     npad = base_bits.shape[0]
@@ -395,13 +426,12 @@ def extract_rows_packed(q_bits, base_bits, qlow, blow, qidx, *, sim=40,
     out = torch.zeros((mq, npad // 8), dtype=torch.uint8, device=q_bits.device)
     if mq and min(int(n_total), npad) > 0:
         next_item = torch.zeros(1, dtype=torch.int32, device=q_bits.device)
-        err = _build.load().lib.rupp_hamming_extract(
-            q_bits.data_ptr(), base_bits.data_ptr(), qlow.data_ptr(),
-            blow.data_ptr(), qidx.data_ptr(), v, nbytes, mq, npad,
-            int(n_total), int(sim), EXTRACT_ITEM_TILES, next_item.data_ptr(),
-            out.data_ptr(), _build.stream_ptr(q_bits))
-        _build.check(err, "hamming_extract_kernel")
-        _build.count_launch(extract_rows_packed)
+        _build.launch(
+            extract_rows_packed, "hamming_extract_kernel",
+            "rupp_hamming_extract", q_bits, q_bits.data_ptr(),
+            base_bits.data_ptr(), qlow.data_ptr(), blow.data_ptr(),
+            qidx.data_ptr(), v, nbytes, mq, npad, int(n_total), int(sim),
+            EXTRACT_ITEM_TILES, next_item.data_ptr(), out.data_ptr())
     return out
 
 

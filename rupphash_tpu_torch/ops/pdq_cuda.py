@@ -95,14 +95,11 @@ def pdq_hash(lumas, l_unique, r_unique, shape_idx, d16) -> dict:
     coeffs = torch.empty((b, 256), dtype=torch.float32, device=dev)
     lumas, lt, rt = _kernel_operands(lumas, l_unique, r_unique)
     _, hp, wp = lumas.shape
-    lib = _build.load().lib
-    err = lib.rupp_pdq_hash(
+    _build.launch(
+        pdq_hash, "pdq_hash_kernel", "rupp_pdq_hash", lumas,
         lumas.data_ptr(), b, hp, wp, lt.data_ptr(), rt.data_ptr(),
         0 if idx is None else idx.data_ptr(), d16.data_ptr(),
-        dihedral.data_ptr(), quality.data_ptr(), coeffs.data_ptr(),
-        _build.stream_ptr(lumas))
-    _build.check(err, "pdq_hash_kernel")
-    _build.count_launch(pdq_hash)
+        dihedral.data_ptr(), quality.data_ptr(), coeffs.data_ptr())
     return {"hash": dihedral[:, 0, :], "dihedral": dihedral,
             "quality": quality, "coeffs": coeffs}
 

@@ -98,13 +98,11 @@ def _launch(lumas, l1, l2, l3, r_t, d16, with_dihedral: bool):
     quality = torch.empty((b,), dtype=torch.float32, device=dev)
     dihedral = (torch.empty((b, 8, 32), dtype=torch.uint8, device=dev)
                 if with_dihedral else None)
-    err = _build.load().lib.rupp_pdq_coeffs(
+    _build.launch(
+        pdq_coeffs, "pdq_coeffs_kernel", "rupp_pdq_coeffs", lumas,
         lumas.data_ptr(), b, rows, cols, l1.data_ptr(), l2.data_ptr(),
         l3.data_ptr(), r_t.data_ptr(), d16.data_ptr(), coeffs.data_ptr(),
-        quality.data_ptr(), dihedral.data_ptr() if with_dihedral else 0,
-        _build.stream_ptr(lumas))
-    _build.check(err, "pdq_coeffs_kernel")
-    _build.count_launch(pdq_coeffs)
+        quality.data_ptr(), dihedral.data_ptr() if with_dihedral else 0)
     return coeffs, quality, dihedral
 
 

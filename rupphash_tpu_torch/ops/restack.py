@@ -36,10 +36,8 @@ def restack(x: torch.Tensor, width: int) -> torch.Tensor:
     rows, slices = x.shape[1], x.shape[2] // width
     out = torch.empty((slices * rows, width), dtype=torch.float32,
                       device=x.device)
-    err = _build.load().lib.rupp_restack(x.data_ptr(), rows, slices, width,
-                                         out.data_ptr(), _build.stream_ptr(x))
-    _build.check(err, "restack_kernel")
-    _build.count_launch(restack)
+    _build.launch(restack, "restack_kernel", "rupp_restack", x, x.data_ptr(),
+                  rows, slices, width, out.data_ptr())
     return out
 
 

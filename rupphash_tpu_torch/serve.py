@@ -20,12 +20,15 @@ Surfaces, as the reference's:
 Low-quality corpus entries only match at distance 0, the scanner's
 gating rule (scanner.rs:1588-1594); removed entries are tombstones
 until compaction.  Index files are the reference's `.npz` format, so
-either package loads the other's.  The corpus lives on one device:
-mesh-sharded queries are not ported yet (ROADMAP.md §1, parallel).
+either package loads the other's.  With a mesh (parallel/sharded.py)
+the corpus is split over its devices, each device answers for its
+shard and the first merges their top-k; --serve takes one when more
+than one card is visible.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import sys
@@ -39,14 +42,12 @@ import torch
 
 from . import device
 from .ops import hamming, pdq_torch
+from .parallel import sharded
 from .pipeline import decode
 from .pipeline.decode import prepare_luma_fast
 from .utils import netguard
 
 PDQ_MIN_QUALITY = 50
-
-_MESH_NOT_PORTED = ("mesh-sharded serving is not ported yet (ROADMAP.md "
-                    "§1, parallel: query_mesh and multi-device run_serve)")
 
 # device-resident per-row status codes (int8): OK matches normally, LOW
 # only matches at distance 0, DEAD never matches (tombstoned by
@@ -94,6 +95,12 @@ def _dev_write_rows(base, status, rows, strows, start):
     return base, status
 
 
+def _check_mesh(mesh):
+    if mesh is not None and not isinstance(mesh, sharded.Mesh):
+        raise TypeError("mesh must be a rupphash_tpu_torch.parallel.sharded."
+                        f"Mesh (make_mesh()), got {type(mesh).__name__}")
+
+
 def _dev_kill_rows(status, idx):
     """A new version of `status` with rows tombstoned by index (idx padded
     with out-of-range values, which are dropped)."""
@@ -124,9 +131,12 @@ class HashIndex:
     capacity (uploading only the new rows) and remove() tombstones rows
     via a status write (uploading only the indices).  A full re-push
     happens only on first use, capacity growth (amortized O(1) via
-    doubling), or compaction (when >50% of slots are dead).  Device
-    updates build new tensors, so an in-flight query's captured snapshot
-    stays valid while a mutation builds the next version.  Host slots are
+    doubling), compaction (when >50% of slots are dead), or a query on
+    another mesh than the last.  Device updates build new tensors, so an
+    in-flight query's captured snapshot stays valid while a mutation
+    builds the next version.  The one-device residency and the mesh's
+    (one shard a device, capacity a multiple of 8 x the device count)
+    are kept apart, each with its own incremental state.  Host slots are
     append-only between compactions, so a snapshot's (arrays, paths-list,
     n) triple never tears under concurrent mutation.
     """
@@ -140,9 +150,11 @@ class HashIndex:
         self._paths: list[str] = []   # slot-aligned; tombstones keep slot
         self._n = 0                   # slots in use (incl. dead)
         self._n_dead = 0
-        # device state: {"h", "st" (tensors), "cap", "applied", "paths"
-        # (the slot list object at push time), "pending_dead", "rank",
-        # "rank_n"}
+        # device state, on the index's device or over the mesh it was
+        # pushed for (rebuilt when a query names another): {"shards"
+        # [(hashes, status) tensors], "mesh" (None: one device), "cap",
+        # "applied", "paths" (the slot list object at push time),
+        # "pending_dead", "rank", "rank_n"}
         self._dev = None
         self._lock = threading.Lock()
 
@@ -197,13 +209,14 @@ class HashIndex:
         path = str(path)
         with self._lock:
             removed = 0
+            dev = self._dev
             for i in range(self._n):
                 if self._paths[i] == path and not self._dead[i]:
                     self._dead[i] = True
                     self._n_dead += 1
                     removed += 1
-                    if self._dev is not None and i < self._dev["applied"]:
-                        self._dev["pending_dead"].append(i)
+                    if dev is not None and i < dev["applied"]:
+                        dev["pending_dead"].append(i)
             return removed
 
     def _compact_locked(self):
@@ -271,79 +284,136 @@ class HashIndex:
         st[self._dead[lo:hi]] = STATUS_DEAD
         return st
 
-    def _device_arrays(self):
-        """(hashes_dev, status_dev, paths_list, n, live_rank), captured
-        together under the lock so concurrent add/remove cannot shift the
-        index<->path mapping mid-query.  live_rank maps device slots to
-        positions in the live-compacted view (.hashes/.paths).  Syncs
-        pending mutations with O(delta) upload traffic."""
-        dev_t = self.device
+    def _device_arrays(self, mesh=None):
+        """(shards, paths_list, n, live_rank), captured together under the
+        lock so concurrent add/remove cannot shift the index<->path
+        mapping mid-query.  shards is [(hashes (cap/ndev, nbytes) u8,
+        status (cap/ndev,) int8)], one per device of the mesh (q-major),
+        or one on the index's device without a mesh.  live_rank maps
+        device slots to positions in the live-compacted view
+        (.hashes/.paths).  Syncs pending mutations with O(delta) upload
+        traffic."""
+        devs = [self.device] if mesh is None else mesh.flat
         with self._lock:
             if self._n_dead > max(64, self._n // 2):
                 self._compact_locked()
             dev = self._dev
+            if dev is not None and dev["mesh"] is not mesh:
+                dev = None   # another mesh, or none: rebuild
             if dev is None or self._n > dev["cap"]:
                 # full (re-)push: first use, capacity growth, compaction
+                unit = 8 * len(devs)
                 cap = max(1024,
                           1 << max(0, (max(self._n, 1) - 1).bit_length()))
+                cap = -(-cap // unit) * unit
+                loc = cap // len(devs)
                 hp = np.zeros((cap, self.nbytes), np.uint8)
                 hp[:self._n] = self._hashes[:self._n]
                 st = np.full(cap, STATUS_DEAD, np.int8)
                 st[:self._n] = self._status_rows(0, self._n)
-                dev = {"h": _upload(hp, dev_t), "st": _upload(st, dev_t),
-                       "cap": cap, "applied": self._n,
-                       "paths": self._paths, "pending_dead": []}
+                dev = {"shards": [
+                    (_upload(hp[s * loc:(s + 1) * loc], d),
+                     _upload(st[s * loc:(s + 1) * loc], d))
+                    for s, d in enumerate(devs)],
+                    "mesh": mesh, "cap": cap, "applied": self._n,
+                    "paths": self._paths, "pending_dead": []}
                 self._dev = dev
             else:
+                shards = list(dev["shards"])
+                loc = dev["cap"] // len(devs)
                 if dev["applied"] < self._n:
-                    # O(delta): upload only the appended rows
+                    # O(delta): upload only the appended rows, each to the
+                    # shard that holds its slot
                     start, n = dev["applied"], self._n
-                    rows = _upload(self._hashes[start:n], dev_t)
-                    strows = _upload(self._status_rows(start, n), dev_t)
-                    dev["h"], dev["st"] = _dev_write_rows(
-                        dev["h"], dev["st"], rows, strows, start)
+                    for s, d in enumerate(devs):
+                        lo, hi = max(start, s * loc), min(n, (s + 1) * loc)
+                        if lo < hi:
+                            shards[s] = _dev_write_rows(
+                                *shards[s], _upload(self._hashes[lo:hi], d),
+                                _upload(self._status_rows(lo, hi), d),
+                                lo - s * loc)
                     dev["applied"] = n
                 if dev["pending_dead"]:
                     # O(delta): upload only the tombstoned indices
-                    idx = np.asarray(dev["pending_dead"], np.int32)
-                    dev["st"] = _dev_kill_rows(dev["st"], _upload(idx, dev_t))
+                    idx = np.asarray(dev["pending_dead"], np.int64)
+                    for s in np.unique(idx // loc):
+                        mine = (idx[idx // loc == s] - s * loc).astype(np.int32)
+                        h, st = shards[s]
+                        shards[s] = (h, _dev_kill_rows(
+                            st, _upload(mine, devs[s])))
                     dev["pending_dead"] = []
+                dev["shards"] = shards
             if dev.get("rank_n") != (self._n, self._n_dead):
                 # slot -> live-compacted position (host-side, rebuilt
                 # only when the live set changed)
                 dev["rank"] = np.cumsum(self._live_mask) - 1
                 dev["rank_n"] = (self._n, self._n_dead)
-            return dev["h"], dev["st"], dev["paths"], self._n, dev["rank"]
+            return dev["shards"], dev["paths"], self._n, dev["rank"]
+
+    def _matches(self, dists, idx, similarity, max_results, paths, rank):
+        out = []
+        for drow, irow in zip(dists, idx):
+            sel = drow <= similarity    # sentinel rows are never selected
+            # report live-compacted positions (same index space as
+            # .hashes/.paths and the mesh path), not device slots
+            out.append([(int(rank[int(i)]), paths[int(i)], int(d))
+                        for d, i in zip(drow[sel][:max_results],
+                                        irow[sel][:max_results])])
+        return out
+
+    def query_mesh(self, mesh, variants: np.ndarray, similarity: int = 40,
+                   max_results: int = 100):
+        """Mesh-sharded query against the incremental sharded corpus (the
+        same O(delta) mutations as the one-device path): each device
+        gates its shard's distances and keeps its k best, the first
+        merges them (parallel/sharded.sharded_query_topk_status), so
+        readback is O(Q x max_results).  Answers, indices included, are
+        the one-device path's."""
+        _check_mesh(mesh)
+        if len(self) == 0:
+            return [[] for _ in range(len(variants))]
+        similarity = max(0, min(int(similarity), self.nbytes * 8 - 1))
+        shards, paths, n, rank = self._device_arrays(mesh)
+        cap = sum(int(h.shape[0]) for h, _ in shards)
+        k = min(cap, max(16, 1 << (max(1, max_results) - 1).bit_length()))
+        q = _upload(np.ascontiguousarray(variants, dtype=np.uint8),
+                    mesh.home)
+        dists, idx = (t.cpu().numpy() for t in _mesh_query_fn(mesh)(
+            q, shards, n, similarity, k))
+        return self._matches(dists, idx, similarity, max_results, paths,
+                             rank)
 
     def query(self, variants: np.ndarray, similarity: int = 40,
               max_results: int = 100, mesh=None):
         """(Q, V, nbytes) query dihedral variants -> per-query matches
         [(index, path, distance), ...] sorted by distance, ties by index.
+        With a mesh (parallel/sharded.make_mesh) the corpus is sharded
+        over its devices (query_mesh).
 
         similarity is clamped to [0, nbits-1]: the sentinels nbits+1
         (device padding rows) and the low-quality gate must never be
         selectable by a client-supplied radius."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
         similarity = max(0, min(int(similarity), self.nbytes * 8 - 1))
+        if mesh is not None:
+            return self.query_mesh(mesh, variants, similarity, max_results)
         if len(self) == 0:
             return [[] for _ in range(len(variants))]
-        base_dev, status_dev, paths, n, rank = self._device_arrays()
+        [(base_dev, status_dev)], paths, n, rank = self._device_arrays()
         q = np.ascontiguousarray(variants, dtype=np.uint8)
         k = min(int(base_dev.shape[0]),
                 max(16, 1 << (max(1, max_results) - 1).bit_length()))
         dists, idx = (t.cpu().numpy() for t in _query_topk(
             _upload(q, self.device), base_dev, status_dev, n,
             self.nbytes * 8, k))
-        out = []
-        for drow, irow in zip(dists, idx):
-            sel = drow <= similarity
-            # report live-compacted positions (same index space as
-            # .hashes/.paths), not device slots
-            out.append([(int(rank[int(i)]), paths[int(i)], int(d))
-                        for d, i in zip(drow[sel][:max_results],
-                                        irow[sel][:max_results])])
-        return out
+        return self._matches(dists, idx, similarity, max_results, paths,
+                             rank)
+
+
+@functools.lru_cache(maxsize=8)
+def _mesh_query_fn(mesh):
+    # keyed on the mesh only: the client-supplied radius is an argument
+    # of each call, so no per-radius state builds up
+    return sharded.sharded_query_topk_status(mesh)
 
 
 class NearDupService:
@@ -356,10 +426,11 @@ class NearDupService:
 
     def __init__(self, index: HashIndex, similarity: int | None = 40,
                  roots=None, mesh=None, allow_hosts=()):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
+        _check_mesh(mesh)
         self.index = index
         self.device = device.get()
+        # the corpus sharded over a mesh's devices; None: on self.device
+        self.mesh = mesh
         # the CLI leaves --similarity None; the service uses the
         # reference default 40 (phdupes.rs:195-282)
         self.similarity = 40 if similarity is None else int(similarity)
@@ -407,7 +478,8 @@ class NearDupService:
         sim = self.similarity if similarity is None else similarity
         if quality < PDQ_MIN_QUALITY:
             sim = 0  # low-quality query: exact only (scanner gate)
-        matches = self.index.query(variants[None], sim, max_results)[0]
+        matches = self.index.query(variants[None], sim, max_results,
+                                   mesh=self.mesh)[0]
         with self._lock:
             self.queries += 1
         return {"quality": quality,
@@ -562,12 +634,16 @@ def run_serve(args) -> int:
         if index_file:
             index.save(index_file)
             print(f"saved index to {index_file}", file=sys.stderr)
-    if torch.cuda.device_count() > 1:
-        print(f"{torch.cuda.device_count()} CUDA devices visible; the "
-              f"corpus stays on {device.get()} ({_MESH_NOT_PORTED})",
-              file=sys.stderr)
+    mesh = None
+    devices = sharded.local_devices()
+    if len(devices) > 1:
+        # no fallback to one card: a mesh that cannot be built is an error
+        mesh = sharded.make_mesh(devices=devices)
+        print(f"corpus sharded over {mesh.size} devices (mesh "
+              f"{mesh.shape})", file=sys.stderr)
     svc = NearDupService(index, similarity=args.similarity,
                          roots=list(getattr(args, "paths", []) or []),
+                         mesh=mesh,
                          allow_hosts=tuple(
                              getattr(args, "allow_host", None) or ()))
     host = getattr(args, "host", "127.0.0.1")

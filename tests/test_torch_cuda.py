@@ -629,3 +629,108 @@ def test_gui_scans_on_cuda_and_serves_a_dng_like_the_cpu(dev, tmp_path,
     assert gui.intent("quit")["quit"]
     t.join(60)
     assert not t.is_alive() and rc == [0]
+
+
+@pytest.fixture
+def two_cards(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (the launch-device repair and "
+                    "a mesh across real cards)")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_the_tensors_device(two_cards):
+    """Tensors on cuda:1 while cuda:0 is current: K1, K2, K3, K4 and K5
+    launch on cuda:1 and equal their plain versions there."""
+    cuda0, cuda1 = two_cards
+    torch.cuda.set_device(cuda0)
+    k1 = pdq_cuda.pdq_hash(*_k1_args(cuda1))
+    p1 = pdq_cuda.pdq_hash_plain(*_k1_args(cuda1))
+    assert k1["dihedral"].device == cuda1
+    assert torch.equal(k1["dihedral"], p1["dihedral"])
+    lumas = _k1_args(cuda1, b=4, rows=240, cols=320)[0]
+    assert torch.equal(pdq_hybrid.pdq_hash_batch_hybrid(lumas)["dihedral"],
+                       pdq_hybrid.pdq_hash_batch_hybrid_plain(lumas)[
+                           "dihedral"])
+    rng = np.random.default_rng(5)
+    n = 3000
+    base = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    base[10] = base[2900]
+    var_bits, low, _, _ = hamming_cuda.prepare_inputs(base, None, None)
+    var_bits, low = var_bits.to(cuda1), low.to(cuda1)
+    kc = hamming_cuda.scan_row_counts(var_bits, low, sim=31, n_total=n)
+    assert torch.equal(kc, hamming_cuda.scan_row_counts_plain(
+        var_bits, low, sim=31, n_total=n))
+    rows = torch.tensor([10, 0, n - 1], device=cuda1)
+    args = (var_bits.index_select(1, rows), var_bits[0], low[rows], low,
+            rows.to(torch.int32)[:, None])
+    assert torch.equal(
+        hamming_cuda.extract_rows_packed(*args, sim=31, n_total=n),
+        hamming_cuda.extract_rows_packed_plain(*args, sim=31, n_total=n))
+    x = torch.randn((1, 64, 8 * 288), device=cuda1)
+    assert torch.equal(restack.restack(x, 288), restack.restack_plain(x, 288))
+    torch.cuda.synchronize(cuda1)
+    assert torch.cuda.current_device() == 0
+
+
+def _mesh_edges_case(n, seed=9):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    for a, b in ((5, n - 3), (n // 2, n // 2 + 1), (n // 3, 2 * n // 3)):
+        base[b] = base[a]
+    var = rng.integers(0, 256, (n, 8, 32), dtype=np.uint8)
+    var[:, 0] = base
+    var[n // 4, 6] = base[n - 10]
+    low = rng.random(n) < 0.05
+    return base, var, low
+
+
+@pytest.mark.parametrize("n_dev", [1, 4])
+def test_sharded_search_on_a_virtual_mesh_equals_one_device(dev, n_dev):
+    """A mesh that repeats the one card: the cells' K3 counts sum to one
+    K3 launch's, one launch per cell that holds a pair, and the edges
+    equal the one-device search's."""
+    from rupphash_tpu_torch.parallel import sharded
+
+    mesh = sharded.make_mesh(n_dev, devices=[dev] * n_dev)
+    n = 20_000
+    base, var, low = _mesh_edges_case(n)
+    inputs = sharded.mesh_inputs(mesh, var, low)
+    before = hamming_cuda.scan_row_counts.launches
+    got = sharded.sharded_row_counts(mesh, 40)(inputs)
+    cells = 3 if n_dev == 4 else 1       # the (1, 0) block lies under the diagonal
+    assert hamming_cuda.scan_row_counts.launches - before == cells
+    var_bits, low_d, _, _ = hamming_cuda.prepare_inputs_device(
+        base, var, low)
+    want = hamming_cuda.scan_row_counts(var_bits, low_d, sim=40, n_total=n)
+    assert torch.equal(got[:n], want[:n, 0])
+    ei, ej = sharded.sharded_find_edges(mesh, base, var, low, 40)
+    fi, fj = hamming.find_edges_fast(base, var, low, similarity=40)
+    assert sorted(zip(ei.tolist(), ej.tolist())) == \
+        sorted(zip(fi.tolist(), fj.tolist()))
+    # the engine's route: the scan's rows as a tensor on the card
+    ri, rj = sharded.sharded_find_edges(
+        mesh, None, torch.from_numpy(var).to(dev), low, 40)
+    assert sorted(zip(ri.tolist(), rj.tolist())) == \
+        sorted(zip(fi.tolist(), fj.tolist()))
+    lumas = _k1_args(dev, b=16, rows=240, cols=320)[0]
+    out = sharded.sharded_pdq_hasher(mesh, 240, 320)(lumas)
+    assert torch.equal(out["dihedral"],
+                       pdq_torch.pdq_hash_batch(lumas)["dihedral"])
+
+
+def test_sharded_search_across_two_cards(two_cards):
+    from rupphash_tpu_torch.parallel import sharded
+
+    mesh = sharded.make_mesh(devices=list(two_cards))
+    assert mesh.shape == {"q": 1, "b": 2}
+    base, var, low = _mesh_edges_case(5000)
+    ei, ej = sharded.sharded_find_edges(mesh, base, var, low, 40)
+    fi, fj = hamming.brute_force_edges(base, var, low, 40)
+    assert sorted(zip(ei.tolist(), ej.tolist())) == \
+        sorted(zip(fi.tolist(), fj.tolist()))
+    # rows resident on the first card reach the second by a peer copy
+    ri, rj = sharded.sharded_find_edges(
+        mesh, None, torch.from_numpy(var).to(two_cards[0]), low, 40)
+    assert sorted(zip(ri.tolist(), rj.tolist())) == \
+        sorted(zip(fi.tolist(), fj.tolist()))

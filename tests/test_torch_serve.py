@@ -96,7 +96,7 @@ def test_empty_index_and_clamped_radius():
     hits = tix.query(np.zeros((1, 8, 32), np.uint8), similarity=10_000)[0]
     assert {i for i, _, _ in hits} <= set(range(5))
     assert not any(p == "/lowq.png" for _, p, _ in hits)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         tix.query(np.zeros((1, 8, 32), np.uint8), mesh=object())
     with pytest.raises(ValueError):
         tix.add("/bad.png", b"\x00" * 8)
@@ -484,8 +484,14 @@ def test_http_browser_attack_gates(corpus):
 
 
 def test_service_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """What is not a parallel.sharded.Mesh is refused by name, never
+    served from one device instead."""
+    with pytest.raises(TypeError, match="Mesh \\(make_mesh\\(\\)\\), got object"):
         tserve.NearDupService(tserve.HashIndex(), mesh=object())
+    ix = tserve.HashIndex()
+    ix.add("/a.png", bytes(32), quality=90)
+    with pytest.raises(TypeError, match="got tuple"):
+        ix.query(_q(bytes(32)), mesh=(4, 2))
 
 
 def test_concurrent_requests_answer_as_serial(corpus):
