@@ -422,9 +422,21 @@ def k4_against_plain(label, var_bits, low_d, rows, n, sim, pad_to=None):
     return int(np.unpackbits(km.cpu().numpy()).sum())
 
 
-def stage_split(stats) -> str:
-    return ", ".join(f"{k} {v * 1e3:.1f} ms"
-                     for k, v in stats["stage_s"].items())
+def spanned(call):
+    """call() with the port's spans recorded (utils/trace.recording()):
+    (its result, the host ms of the spans it recorded, by name)."""
+    from rupphash_tpu_torch.utils import trace
+
+    with trace.recording() as rec:
+        out = call()
+    return out, stage_split(rec)
+
+
+def stage_split(spans) -> str:
+    by: dict = {}
+    for s in spans:
+        by[s.name] = by.get(s.name, 0) + s.duration_ns
+    return ", ".join(f"{k} {v / 1e6:.1f} ms" for k, v in by.items())
 
 
 def phase_hamming(dev):
@@ -446,8 +458,8 @@ def phase_hamming(dev):
         err3 = int((kc - pc).abs().max())
         check(err3 == 0, f"K3 sim {sim}: counts differ by up to {err3}")
 
-        ei, ej, stats = hamming.find_edges_fast(base, var, low, similarity=sim,
-                                                return_stats=True)
+        (ei, ej), split = spanned(lambda: hamming.find_edges_fast(
+            base, var, low, similarity=sim))
         # the plain flow over the same hot rows: plain K3 counts, plain K4
         hot = torch.nonzero(pc[:n, 0])[:, 0]
         m = len(hot)
@@ -517,7 +529,7 @@ def phase_hamming(dev):
                   f"one tile of 20 rows + 12 pads ({bits[0]} bits), on "
                   f"{len(late)} rows past row {int(late[0])} ({bits[1]} "
                   f"bits) and on {len(lowq)} low-quality rows ({bits[2]} "
-                  f"bits); find_edges_fast split: {stage_split(stats)}")
+                  f"bits); find_edges_fast split: {split}")
 
     for v, nbytes, sim in ((1, 32, 40), (8, 8, 10), (1, 8, 6)):
         n3 = 3000
@@ -765,8 +777,8 @@ def phase_k3_1m(dev, n=1_000_000):
                    + len(hot) * (8 * 32 + npad // 8))
     del launches
     torch.cuda.empty_cache()
-    ei, ej, stats = hamming.find_edges_fast(base, var, low, similarity=sim,
-                                            return_stats=True)
+    (ei, ej), split = spanned(lambda: hamming.find_edges_fast(
+        base, var, low, similarity=sim))
     check(len(ei) == int(k3.sum()), "N=1M: edges vs K3 counts")
     rng = np.random.default_rng(SEED)
     sample = sorted(set(ei[rng.integers(0, len(ei), 24)].tolist())
@@ -783,7 +795,7 @@ def phase_k3_1m(dev, n=1_000_000):
           f"{len(hot)} hot rows in {-(-len(hot) // chunk)} launches of up to "
           f"{chunk} rows (each mask's clear included), bound "
           f"{k4_bnd['bound_ms']:.3f} ms ({k4_bnd['bound_by']}); "
-          f"find_edges_fast {len(ei)} edges, split: {stage_split(stats)}; "
+          f"find_edges_fast {len(ei)} edges, split: {split}; "
           f"{len(sample)} sampled rows ({len(want)} edges) equal to the host "
           f"oracle; phase {time.perf_counter() - t0:.1f} s")
     return ({"k3_1m_ms": k3_ms, "k6_1m_ms": k6_ms,
@@ -839,8 +851,8 @@ def phase_mesh(dev, big):
     for label, (base, var, low) in (("100k", (base_100k, var_100k, low_100k)),
                                      ("1M", (base_1m, var_1m, low_1m))):
         var_dev = torch.from_numpy(var).to(dev)
-        single[label] = hamming.find_edges_fast_resident(
-            var_dev, low, similarity=sim, return_stats=True)
+        single[label] = spanned(lambda: hamming.find_edges_fast_resident(
+            var_dev, low, similarity=sim, return_stats=True))
         del var_dev
     for n_dev in (1, 4):
         mesh = sharded.make_mesh(n_dev, devices=[dev] * n_dev)
@@ -875,12 +887,12 @@ def phase_mesh(dev, big):
             reset_scan_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ei, ej, st = sharded.sharded_find_edges(
-                mesh, base, var, low, similarity=sim, return_stats=True)
+            (ei, ej, st), split = spanned(lambda: sharded.sharded_find_edges(
+                mesh, base, var, low, similarity=sim, return_stats=True))
             wall = time.perf_counter() - t0
             del var
             e_got = scan_counts()
-            si, sj, sst = single[label]
+            (si, sj, sst), _ = single[label]
             base = base_100k if label == "100k" else base_1m
             check(np.array_equal(np.sort(ei * len(base) + ej),
                                  np.sort(si * len(base) + sj)),
@@ -893,12 +905,12 @@ def phase_mesh(dev, big):
                   and e_got["hamming_rowcount_kernel"] == cells_with_pairs(
                       mesh, len(base)),
                   f"mesh {mesh.shape} N={label}: launches {e_got}")
-            runs[run] = (len(ei), wall, st, e_got)
+            runs[run] = (len(ei), wall, st, e_got, split)
             torch.cuda.empty_cache()
         e100k, e1m = runs["100k"][0], runs["1M resident"][0]
-        st1m, l1m = runs["1M resident"][2:]
-        walls = "; ".join(f"{run} {w * 1e3:.1f} ms ({stage_split(st)})"
-                          for run, (_, w, st, _) in runs.items())
+        st1m, l1m = runs["1M resident"][2:4]
+        walls = "; ".join(f"{run} {w * 1e3:.1f} ms ({split})"
+                          for run, (_, w, _, _, split) in runs.items())
         phase("mesh", f"{mesh.shape} on {n_dev} x {dev} (virtual): "
               f"sharded_row_counts N={n} V=8 sim={sim} identical to one K3 "
               f"launch, K3 launches {got['hamming_rowcount_kernel']} (= cells "
@@ -907,7 +919,7 @@ def phase_mesh(dev, big):
               f"find_edges_fast_resident with its hot rows "
               f"({st1m['hot_rows']} at 1M); wall by run: {walls} (the "
               f"one-device resident search at 1M: "
-              f"{stage_split(single['1M'][2])}); readback "
+              f"{single['1M'][1]}); readback "
               f"{st1m['readback_bytes']} bytes at 1M, launches at 1M {l1m}; "
               f"card: {card_line()}")
 

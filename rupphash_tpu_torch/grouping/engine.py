@@ -315,11 +315,42 @@ def group_files(files: list[FileRecord],
     dihedral sets directly (find_edges_fast_resident: no hash re-upload).
     """
     assert similarity <= hamming.MAX_SIMILARITY_256
-    idx_with_hash = [i for i, f in enumerate(files) if f.pdqhash is not None]
+    # the span closes after the body's frame: freeing its lists of a
+    # row per file (~12 ms at 1M files) is the grouping's own time
+    with trace.span("group", files=len(files)) as sp:
+        return _group_files(files, similarity, sort_order, use_device,
+                            device_batches, sp)
+
+
+def _group_files(files, similarity, sort_order, use_device, device_batches,
+                 sp):
+    with trace.span("group.select"):
+        idx_with_hash = [i for i, f in enumerate(files)
+                         if f.pdqhash is not None]
+        low = np.array([files[i].is_low_quality for i in idx_with_hash])
+        dense_to_sparse = np.asarray(idx_with_hash, dtype=np.int64)
+    sp.count("rows", len(idx_with_hash))
     if not idx_with_hash:
         return [], [], 0
+    if use_device is None:
+        # the same size thresholds as the JAX package: below them the
+        # numpy brute force avoids the sweep's padding to 1024-row tiles
+        accel = device.get().type == "cuda"
+        use_device = len(idx_with_hash) > (256 if accel else 2048)
+    var_sel = (_resident_rows(files, idx_with_hash, device_batches)
+               if use_device else None)
+    with trace.span("edges") as se:
+        ei, ej = _edges(files, idx_with_hash, low, similarity, use_device,
+                        var_sel)
+        se.count("edges", len(ei))
+    return finalize_edges(files, dense_to_sparse[ei], dense_to_sparse[ej],
+                          sort_order)
 
-    low = np.array([files[i].is_low_quality for i in idx_with_hash])
+
+def _edges(files, idx_with_hash, low, similarity, use_device, var_sel):
+    """group_files' edge search over the hashed records, (i, j) indices
+    into idx_with_hash: the numpy brute force, or on the device the
+    mesh, the resident rows `var_sel` or uploaded host arrays."""
 
     def host_arrays():
         # built lazily: the device-resident branch needs neither, and at
@@ -332,38 +363,22 @@ def group_files(files: list[FileRecord],
             for k, i in enumerate(idx_with_hash)])
         return base, variants
 
-    if use_device is None:
-        # the same size thresholds as the JAX package: below them the
-        # numpy brute force avoids the sweep's padding to 1024-row tiles
-        accel = device.get().type == "cuda"
-        use_device = len(idx_with_hash) > (256 if accel else 2048)
-    if use_device:
-        var_sel = _resident_rows(files, idx_with_hash, device_batches)
-        if var_sel is not None:
-            trace.debug("GROUP", "device-resident edge search "
-                        f"({len(idx_with_hash)} rows, no re-upload)")
-        if len(sharded.local_devices()) > 1:
-            # several devices: the ('q', 'b')-mesh count-then-extract
-            # (parallel/sharded.py), the same edges with the triangle
-            # tiled over every device; resident rows are copied device
-            # to device
-            base, variants = ((None, var_sel) if var_sel is not None
-                              else host_arrays())
-            ei, ej = sharded.sharded_find_edges(
-                sharded.make_mesh(), base, variants, low, similarity)
-        elif var_sel is not None:
-            ei, ej = hamming.find_edges_fast_resident(var_sel, low,
-                                                      similarity)
-        else:
-            base, variants = host_arrays()
-            ei, ej = hamming.find_edges_fast(base, variants, low, similarity)
-    else:
-        base, variants = host_arrays()
-        ei, ej = hamming.brute_force_edges(base, variants, low, similarity)
-
-    dense_to_sparse = np.asarray(idx_with_hash, dtype=np.int64)
-    return finalize_edges(files, dense_to_sparse[ei],
-                          dense_to_sparse[ej], sort_order)
+    if not use_device:
+        return hamming.brute_force_edges(*host_arrays(), low, similarity)
+    if var_sel is not None:
+        trace.debug("GROUP", "device-resident edge search "
+                    f"({len(idx_with_hash)} rows, no re-upload)")
+    if len(sharded.local_devices()) > 1:
+        # several devices: the ('q', 'b')-mesh count-then-extract
+        # (parallel/sharded.py), the same edges with the triangle tiled
+        # over every device; resident rows are copied device to device
+        base, variants = ((None, var_sel) if var_sel is not None
+                          else host_arrays())
+        return sharded.sharded_find_edges(sharded.make_mesh(), base,
+                                          variants, low, similarity)
+    if var_sel is not None:
+        return hamming.find_edges_fast_resident(var_sel, low, similarity)
+    return hamming.find_edges_fast(*host_arrays(), low, similarity)
 
 
 def _resident_rows(files, idx_with_hash, device_batches):
@@ -380,17 +395,28 @@ def _resident_rows(files, idx_with_hash, device_batches):
     copy of a stamped record still qualifies).  The gather itself has
     no fallback: an error there propagates."""
 
-    def fallback(reason):
-        trace.count("GROUP-RESIDENT-FALLBACK")
-        trace.tag("GROUP", "device-resident path unavailable "
-                  f"({reason}); falling back to host-array upload")
-        return None
-
     if not device_batches:
         return None
+    with trace.span("group.resident_rows") as sp:
+        order, reason = _resident_order(files, idx_with_hash, device_batches)
+        if reason is not None:
+            sp.count("fallback")
+            trace.count("GROUP-RESIDENT-FALLBACK")
+            trace.tag("GROUP", "device-resident path unavailable "
+                      f"({reason}); falling back to host-array upload")
+            return None
+        sp.count("rows", len(order))
+        var_all = torch.cat([a for _, a in device_batches], dim=0)
+        return var_all.index_select(
+            0, torch.from_numpy(order).to(var_all.device))
+
+
+def _resident_order(files, idx_with_hash, device_batches):
+    """(rows of the concatenated batches in idx_with_hash's order, None),
+    or (None, why) when a batch or a stamp does not line up."""
     for recs, arr in device_batches:
         if int(arr.shape[0]) != len(recs):
-            return fallback("misaligned device batch")
+            return None, "misaligned device batch"
     offsets = np.cumsum([0] + [len(recs)
                                for recs, _ in device_batches])
     order = np.empty(len(idx_with_hash), dtype=np.int64)
@@ -405,10 +431,9 @@ def _resident_rows(files, idx_with_hash, device_batches):
             continue
         order[k] = offsets[loc[0]] + loc[1]
     if missing:
-        return fallback(f"{missing}/{len(idx_with_hash)} records lack "
-                        "a matching device_slot stamp")
-    var_all = torch.cat([a for _, a in device_batches], dim=0)
-    return var_all.index_select(0, torch.from_numpy(order).to(var_all.device))
+        return None, (f"{missing}/{len(idx_with_hash)} records lack a "
+                      "matching device_slot stamp")
+    return order, None
 
 
 def finalize_edges(files, gi: np.ndarray, gj: np.ndarray,
@@ -418,35 +443,44 @@ def finalize_edges(files, gi: np.ndarray, gj: np.ndarray,
     (scanner.rs:1780-1830 + :1561-1576), shared by the single-chip and
     mesh-sharded edge searches so the production semantics exist once."""
     n_all = len(files)
-    # always prefer the native path-halving union-find when the library
-    # is present — the old >10k-edge threshold left mid-size edge sets
-    # on the slower Python loop for no benefit
-    if len(gi) > 0:
-        from .. import native
-        roots = native.union_find_roots(n_all, gi, gj)
-    else:
-        roots = None
-    if roots is not None:
-        raw = _components_from_roots(roots)
-    else:
-        uf = UnionFind(n_all)
-        uf.union_edges(gi, gj)
-        raw = uf.components(min_size=2)
-    raw = merge_groups_by_stem(raw, files)
+    with trace.span("cluster") as sp:
+        with trace.span("cluster.components"):
+            # always prefer the native path-halving union-find when the
+            # library is present — the old >10k-edge threshold left
+            # mid-size edge sets on the slower Python loop for no benefit
+            if len(gi) > 0:
+                from .. import native
+                roots = native.union_find_roots(n_all, gi, gj)
+            else:
+                roots = None
+            if roots is not None:
+                raw = _components_from_roots(roots)
+            else:
+                uf = UnionFind(n_all)
+                uf.union_edges(gi, gj)
+                raw = uf.components(min_size=2)
+        with trace.span("cluster.stem_merge") as sm:
+            merged = merge_groups_by_stem(raw, files)
+            sm.count("merged", len(raw) - len(merged))
 
-    groups: list[list[FileRecord]] = []
-    infos: list[GroupInfo] = []
-    for g in raw:
-        members = [files[i] for i in g]
-        infos.append(analyze_group(members, sort_order))
-        groups.append(members)
+        with trace.span("cluster.analyze"):
+            groups: list[list[FileRecord]] = []
+            infos: list[GroupInfo] = []
+            for g in merged:
+                members = [files[i] for i in g]
+                infos.append(analyze_group(members, sort_order))
+                groups.append(members)
 
-    if sort_order.lower() == "location":
-        apply_location_sort(groups)
+            if sort_order.lower() == "location":
+                apply_location_sort(groups)
 
-    order = sorted(range(len(groups)),
-                   key=lambda k: (0 if infos[k].status == "all-identical" else 1,
-                                  infos[k].max_dist,
-                                  -len(groups[k])))
-    return ([groups[k] for k in order], [infos[k] for k in order],
-            int(len(gi)))
+            order = sorted(range(len(groups)),
+                           key=lambda k: (0 if infos[k].status
+                                          == "all-identical" else 1,
+                                          infos[k].max_dist,
+                                          -len(groups[k])))
+            groups = [groups[k] for k in order]
+            infos = [infos[k] for k in order]
+        sp.count("groups", len(groups))
+        sp.count("members", sum(map(len, groups)))
+        return groups, infos, int(len(gi))

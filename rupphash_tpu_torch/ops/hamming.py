@@ -19,10 +19,10 @@ routes to it where the variant slot 0 is not the base hash.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
+
+from ..utils import trace
 
 MAX_SIMILARITY_256 = 63  # hamminghash.rs:8
 
@@ -279,87 +279,62 @@ def _default_row_chunk(npad: int) -> int:
     return rows // _MIN_ROW_CHUNK * _MIN_ROW_CHUNK
 
 
-class _StageClock:
-    """Host seconds per stage of the edge search, for return_stats: each
-    mark waits for the device, so the time up to it is the stage's."""
-
-    def __init__(self, dev, enabled: bool):
-        self.dev = dev if enabled and dev.type == "cuda" else None
-        self.enabled = enabled
-        self.seconds: dict[str, float] = {}
-        self.last = time.perf_counter()
-
-    def mark(self, stage: str):
-        if not self.enabled:
-            return
-        if self.dev is not None:
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.seconds[stage] = self.seconds.get(stage, 0.0) + now - self.last
-        self.last = now
-
-
 def _edges_from_device(var_bits, low_d, npad, n, low_conf, similarity,
                        row_chunk, return_stats):
     """Shared tail: count sweep -> hot rows -> chunked extraction ->
-    compaction -> host edge assembly.  With return_stats the stats carry
-    stage_s, the host seconds of the count sweep (k3), the extraction
-    launches with their gathers and uploads (k4), the compaction
-    (nonzero and readback) and the host assembly."""
+    compaction -> host edge assembly.  Spans: edges.count (K3 up to the
+    hot rows on the host) and edges.extract (the K4 chunks with their
+    compaction, readback and the host assembly)."""
     from . import hamming_cuda
 
     v = int(var_bits.shape[0])
     stride = npad // 8
     dev = var_bits.device
     pairs = n * (n - 1) // 2 * v
-    clock = _StageClock(dev, return_stats)
-    counts_d = hamming_cuda.scan_row_counts(var_bits, low_d, sim=similarity,
-                                            n_total=n)
-    clock.mark("k3")
-    hot_d, _ = _nonzero_rows(counts_d[:, 0], n)
-    hot = hot_d.cpu().numpy()
-    clock.mark("compact")
+    with trace.span("edges.count") as sp:
+        counts_d = hamming_cuda.scan_row_counts(var_bits, low_d,
+                                                sim=similarity, n_total=n)
+        hot_d, _ = _nonzero_rows(counts_d[:, 0], n)
+        hot = hot_d.cpu().numpy()
+        sp.count("hot_rows", len(hot))
     if len(hot) == 0:
-        return _empty(return_stats, hot_rows=0, pairs_checked=pairs,
-                      stage_s=clock.seconds)
+        return _empty(return_stats, hot_rows=0, pairs_checked=pairs)
     row_chunk = row_chunk or _default_row_chunk(npad)
     low_np = np.asarray(low_conf, dtype=np.int32)
     edges_i: list[np.ndarray] = []
     edges_j: list[np.ndarray] = []
-    for c0 in range(0, len(hot), row_chunk):
-        rows = hot[c0:c0 + row_chunk]
-        m = len(rows)
-        mpad = -(-m // _MIN_ROW_CHUNK) * _MIN_ROW_CHUNK
-        # pad slots point at row n-1 with qidx = n, which keeps them inert
-        ridx = np.full(mpad, n - 1, dtype=np.int64)
-        qidx = np.full((mpad, 1), n, dtype=np.int32)
-        qlow = np.ones((mpad, 1), dtype=np.int32)
-        ridx[:m] = rows
-        qidx[:m, 0] = rows
-        qlow[:m, 0] = low_np[rows]
-        q_bits = var_bits.index_select(1, torch.from_numpy(ridx).to(dev))
-        packed = hamming_cuda.extract_rows_packed(
-            q_bits, var_bits[0], torch.from_numpy(qlow).to(dev), low_d,
-            torch.from_numpy(qidx).to(dev), sim=similarity, n_total=n)
-        clock.mark("k4")
-        pos_d, vals_d = _nonzero_bytes(packed)
-        pos = pos_d.cpu().numpy()
-        vals = vals_d.cpu().numpy()
-        clock.mark("compact")
-        r = pos // stride
-        bytecol = pos % stride
-        rr, bb = np.nonzero(np.unpackbits(vals[:, None], axis=1,
-                                          bitorder="little"))
-        edges_i.append(ridx[r[rr]])
-        edges_j.append(bytecol[rr] * 8 + bb)
-        clock.mark("host")
-
-    ei = np.concatenate(edges_i).astype(np.int64)
-    ej = np.concatenate(edges_j).astype(np.int64)
-    clock.mark("host")
+    with trace.span("edges.extract") as sp:
+        for c0 in range(0, len(hot), row_chunk):
+            rows = hot[c0:c0 + row_chunk]
+            m = len(rows)
+            mpad = -(-m // _MIN_ROW_CHUNK) * _MIN_ROW_CHUNK
+            # pad slots point at row n-1 with qidx = n, which keeps them
+            # inert
+            ridx = np.full(mpad, n - 1, dtype=np.int64)
+            qidx = np.full((mpad, 1), n, dtype=np.int32)
+            qlow = np.ones((mpad, 1), dtype=np.int32)
+            ridx[:m] = rows
+            qidx[:m, 0] = rows
+            qlow[:m, 0] = low_np[rows]
+            q_bits = var_bits.index_select(1, torch.from_numpy(ridx).to(dev))
+            packed = hamming_cuda.extract_rows_packed(
+                q_bits, var_bits[0], torch.from_numpy(qlow).to(dev), low_d,
+                torch.from_numpy(qidx).to(dev), sim=similarity, n_total=n)
+            pos_d, vals_d = _nonzero_bytes(packed)
+            pos = pos_d.cpu().numpy()
+            vals = vals_d.cpu().numpy()
+            r = pos // stride
+            bytecol = pos % stride
+            rr, bb = np.nonzero(np.unpackbits(vals[:, None], axis=1,
+                                              bitorder="little"))
+            edges_i.append(ridx[r[rr]])
+            edges_j.append(bytecol[rr] * 8 + bb)
+            sp.count("launches")
+        ei = np.concatenate(edges_i).astype(np.int64)
+        ej = np.concatenate(edges_j).astype(np.int64)
+        sp.count("edges", len(ei))
     if return_stats:
-        return ei, ej, {"hot_rows": int(len(hot)), "pairs_checked": pairs,
-                        "stage_s": clock.seconds}
+        return ei, ej, {"hot_rows": int(len(hot)), "pairs_checked": pairs}
     return ei, ej
 
 

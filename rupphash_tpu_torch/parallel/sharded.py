@@ -49,9 +49,10 @@ import numpy as np
 import torch
 
 from .. import device
-from ..ops import hamming, hamming_cuda, pdq_torch
+from ..ops import hamming_cuda, pdq_torch
 from ..ops.hamming import _nonzero_bytes
 from ..ops.hamming import unpack_bits_pm1  # noqa: F401 (the reference's name)
+from ..utils import trace
 
 
 def local_devices() -> list[torch.device]:
@@ -359,22 +360,18 @@ def sharded_find_edges(mesh: Mesh, base_hashes: np.ndarray | None,
     (4 bytes), their (index, count) pairs padded to a power of two of at
     least 1024, and per chunk of hot rows a power-of-two budget of
     (int32 position, u8 byte) pairs that the count sweep's per-row
-    counts set in advance.  stats' stage_s holds the host seconds of
-    each stage, a device wait after each: the inputs' padding and
-    copies to the cells (inputs), the count sweep (k3), the hot rows'
-    readback (compact), the extraction with the cells' compaction and
-    merge (k4), and the host assembly (host)."""
+    counts set in advance.  Spans, as ops/hamming's: edges.count (the
+    count sweep up to the hot rows on the host) and edges.extract (the
+    extraction with the cells' compaction and merge, the readback and
+    the host assembly)."""
     if variants is None:
         variants = base_hashes[:, None, :]
     n = int(variants.shape[0])
     empty = np.empty(0, dtype=np.int64)
-    clock = hamming._StageClock(mesh.home, return_stats)
 
     def done(ei, ej, hot_rows, readback):
         if return_stats:
-            return ei, ej, {"hot_rows": hot_rows,
-                            "readback_bytes": readback,
-                            "stage_s": clock.seconds}
+            return ei, ej, {"hot_rows": hot_rows, "readback_bytes": readback}
         return ei, ej
 
     if n == 0:
@@ -392,23 +389,22 @@ def sharded_find_edges(mesh: Mesh, base_hashes: np.ndarray | None,
 
     nq = mesh.shape["q"]
     inputs = mesh_inputs(mesh, variants, low_conf)
-    clock.mark("inputs")
     stride = inputs.npad // 8
     # positions index an (mpad, Npad/8) mask in int32, so a chunk keeps
     # mpad * stride < 2^31 (the reference's bound at :436-443)
     max_rows = max(nq, int((2 ** 31 - 1) // max(stride, 1)) // nq * nq)
     row_chunk = min(row_chunk, max_rows)
 
-    counts = sharded_row_counts(mesh, similarity)(inputs)
-    clock.mark("k3")
-    n_hot = int(torch.count_nonzero(counts[:n]))
-    readback = 4  # the scalar above
+    with trace.span("edges.count") as sp:
+        counts = sharded_row_counts(mesh, similarity)(inputs)
+        n_hot = int(torch.count_nonzero(counts[:n]))
+        readback = 4  # the scalar above
+        if n_hot:
+            hpad = max(1024, 1 << (n_hot - 1).bit_length())
+            hot_idx, hot_cnt = _nonzero_rows_padded(counts, n, hpad)
+        sp.count("hot_rows", n_hot)
     if n_hot == 0:
-        clock.mark("compact")
         return done(empty, empty, 0, readback)
-    hpad = max(1024, 1 << (n_hot - 1).bit_length())
-    hot_idx, hot_cnt = _nonzero_rows_padded(counts, n, hpad)
-    clock.mark("compact")
     readback += hot_idx.nbytes + hot_cnt.nbytes
     sel = hot_idx >= 0
     hot = hot_idx[sel].astype(np.int64)
@@ -417,31 +413,31 @@ def sharded_find_edges(mesh: Mesh, base_hashes: np.ndarray | None,
     extract = sharded_extract_rows(mesh, similarity)
     edges_i: list[np.ndarray] = []
     edges_j: list[np.ndarray] = []
-    for c0 in range(0, len(hot), row_chunk):
-        rows = hot[c0:c0 + row_chunk]
-        mpad = _pad_multiple(len(rows), nq)
-        # the chunk's edge count is known from the count sweep; a
-        # power-of-two budget of at least 256 pairs, capped by the mask
-        k = int(hot_counts[c0:c0 + row_chunk].sum())
-        kpad = max(256, 1 << max(0, (k - 1).bit_length()))
-        kpad = min(kpad, mpad * stride)
-        idx_d, vals_d = extract(inputs, rows, kpad)
-        clock.mark("k4")
-        idx, vals = idx_d.cpu().numpy(), vals_d.cpu().numpy()
-        clock.mark("compact")
-        readback += idx.nbytes + vals.nbytes
-        live = idx >= 0
-        idx, vals = idx[live].astype(np.int64), vals[live]
-        r = idx // stride
-        bytecol = idx % stride
-        bits = np.unpackbits(vals[:, None], axis=1, bitorder="little")
-        rr, bb = np.nonzero(bits)
-        edges_i.append(rows[r[rr]])
-        edges_j.append(bytecol[rr] * 8 + bb)
-        clock.mark("host")
-
-    return done(np.concatenate(edges_i), np.concatenate(edges_j),
-                int(len(hot)), readback)
+    with trace.span("edges.extract") as sp:
+        for c0 in range(0, len(hot), row_chunk):
+            rows = hot[c0:c0 + row_chunk]
+            mpad = _pad_multiple(len(rows), nq)
+            # the chunk's edge count is known from the count sweep; a
+            # power-of-two budget of at least 256 pairs, capped by the
+            # mask
+            k = int(hot_counts[c0:c0 + row_chunk].sum())
+            kpad = max(256, 1 << max(0, (k - 1).bit_length()))
+            kpad = min(kpad, mpad * stride)
+            idx_d, vals_d = extract(inputs, rows, kpad)
+            idx, vals = idx_d.cpu().numpy(), vals_d.cpu().numpy()
+            readback += idx.nbytes + vals.nbytes
+            live = idx >= 0
+            idx, vals = idx[live].astype(np.int64), vals[live]
+            r = idx // stride
+            bytecol = idx % stride
+            bits = np.unpackbits(vals[:, None], axis=1, bitorder="little")
+            rr, bb = np.nonzero(bits)
+            edges_i.append(rows[r[rr]])
+            edges_j.append(bytecol[rr] * 8 + bb)
+            sp.count("launches")
+        ei, ej = np.concatenate(edges_i), np.concatenate(edges_j)
+        sp.count("edges", len(ei))
+    return done(ei, ej, int(len(hot)), readback)
 
 
 def sharded_query_topk_status(mesh: Mesh):

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time as _time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
@@ -53,18 +52,9 @@ class ScanConfig:
 class ScanStats:
     total: int = 0
     cache_full: int = 0
-    cache_partial: int = 0
     decoded: int = 0
     failed: int = 0
     hashed: int = 0
-    # per-stage wall seconds of the scan loop (bench scan_profile):
-    # walk, probe, heavy, device_dispatch, device_drain, cache_submit,
-    # dihedral_regen, cache_flush.  Stages overlap device execution
-    # (async dispatch), so they sum to host-loop time, not wall time.
-    stage_s: dict = dataclasses.field(default_factory=dict)
-
-    def add_stage(self, name: str, dt: float):
-        self.stage_s[name] = self.stage_s.get(name, 0.0) + dt
 
 
 def _default_workers() -> int:
@@ -217,46 +207,50 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
     uploaded batch of their host-regenerated dihedral sets."""
     cfg = cfg or ScanConfig()
     device.get()   # the card unless the CPU was pinned: raises before any work
-    t0 = _time.perf_counter()
-    files = walker.collect_files(paths, recursive=cfg.recursive)
-    stats = ScanStats(total=len(files))
-    workers = cfg.workers or _default_workers()
+    # Spans (utils/trace): scan.walk, scan.probe, scan.heavy, one
+    # scan.device_dispatch, scan.device_drain and scan.cache_submit a
+    # device batch, one scan.dihedral_regen a chunk of cache hits, and
+    # scan.cache_flush.  They hold host time: device batches run
+    # asynchronously beside them.
+    with trace.span("scan.walk") as sp:
+        files = walker.collect_files(paths, recursive=cfg.recursive)
+        stats = ScanStats(total=len(files))
+        workers = cfg.workers or _default_workers()
 
-    # hardlink dedup: decode/hash one path per (dev, inode); clones get
-    # their results copied afterwards (scanner.rs:1526-1540)
-    fid_first: dict[int, Path] = {}
-    hardlink_clones: dict[Path, Path] = {}  # clone path -> representative
-    identities: dict[Path, tuple] = {}      # reused by _probe_one
-    scan_files = []
-    for p in files:
-        try:
-            ident = H.file_identity(p)
-        except OSError:
-            continue
-        if ident[0] in fid_first:
-            hardlink_clones[p] = fid_first[ident[0]]
-        else:
-            fid_first[ident[0]] = p
-            identities[p] = ident
-            scan_files.append(p)
-    files = scan_files
-    stats.add_stage("walk", _time.perf_counter() - t0)
+        # hardlink dedup: decode/hash one path per (dev, inode); clones
+        # get their results copied afterwards (scanner.rs:1526-1540)
+        fid_first: dict[int, Path] = {}
+        hardlink_clones: dict[Path, Path] = {}  # clone -> representative
+        identities: dict[Path, tuple] = {}      # reused by _probe_one
+        scan_files = []
+        for p in files:
+            try:
+                ident = H.file_identity(p)
+            except OSError:
+                continue
+            if ident[0] in fid_first:
+                hardlink_clones[p] = fid_first[ident[0]]
+            else:
+                fid_first[ident[0]] = p
+                identities[p] = ident
+                scan_files.append(p)
+        files = scan_files
+        sp.count("files", len(files))
 
     records: list[engine.FileRecord] = []
     buckets: dict[tuple, list] = {}   # (rows, cols) -> [(rec, luma, feats)]
     done = 0
 
     def apply_outputs(items, out, host, copied):
-        t0 = _time.perf_counter()
-        if copied is not None:
-            copied.synchronize()
-        # copies: records keep views of these, and the pinned buffers
-        # should not live as long as the records
-        dihedral = np.array(host["dihedral"])
-        hashes = dihedral[:, 0, :]
-        quality = np.array(host["quality"])
-        coeffs = np.array(host["coeffs"])
-        stats.add_stage("device_drain", _time.perf_counter() - t0)
+        with trace.span("scan.device_drain", files=len(items)):
+            if copied is not None:
+                copied.synchronize()
+            # copies: records keep views of these, and the pinned
+            # buffers should not live as long as the records
+            dihedral = np.array(host["dihedral"])
+            hashes = dihedral[:, 0, :]
+            quality = np.array(host["quality"])
+            coeffs = np.array(host["coeffs"])
         if device_sink is not None:
             # explicit (batch, row) stamp: the grouping engine's
             # device-resident gather routes on this, not object identity
@@ -265,33 +259,33 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
                 rec.device_slot = (b, k)
             device_sink.append(([rec for rec, _, _ in items],
                                 out["dihedral"]))
-        t0 = _time.perf_counter()
-        write_items = []
-        for k, (rec, _, feats) in enumerate(items):
-            rec.pdqhash = bytes(hashes[k])
-            rec.pdq_quality = int(round(float(quality[k]) * 100))
-            rec.dihedral = dihedral[k]
-            stats.hashed += 1
-            if store:
-                # coefficients live in the cache, not resident memory:
-                # 1 KB/file is the difference between ~1.5 GiB and the
-                # reference's ~2.5 GiB budget at 1M files (README.md:12);
-                # all three puts pack into ONE writer-queue submit per
-                # device batch (per-file submits each wake the writer
-                # thread — measured ~35% of the cold host loop)
-                write_items.append(store.pdqhash_item(
-                    rec.content_hash, rec.pdqhash, rec.pdq_quality))
-                write_items.append(store.coefficients_item(
-                    rec.content_hash, coeffs[k]))
-                if feats is not None:
-                    feats["pdq_quality"] = rec.pdq_quality
-                    write_items.append(store.features_item(
-                        rec.content_hash, feats))
-            else:
-                rec.coeffs = coeffs[k]
-        if write_items:
-            store.submit_many(write_items)
-        stats.add_stage("cache_submit", _time.perf_counter() - t0)
+        with trace.span("scan.cache_submit", files=len(items)):
+            write_items = []
+            for k, (rec, _, feats) in enumerate(items):
+                rec.pdqhash = bytes(hashes[k])
+                rec.pdq_quality = int(round(float(quality[k]) * 100))
+                rec.dihedral = dihedral[k]
+                stats.hashed += 1
+                if store:
+                    # coefficients live in the cache, not resident
+                    # memory: 1 KB/file is the difference between ~1.5
+                    # GiB and the reference's ~2.5 GiB budget at 1M
+                    # files (README.md:12); all three puts pack into ONE
+                    # writer-queue submit per device batch (per-file
+                    # submits each wake the writer thread — measured
+                    # ~35% of the cold host loop)
+                    write_items.append(store.pdqhash_item(
+                        rec.content_hash, rec.pdqhash, rec.pdq_quality))
+                    write_items.append(store.coefficients_item(
+                        rec.content_hash, coeffs[k]))
+                    if feats is not None:
+                        feats["pdq_quality"] = rec.pdq_quality
+                        write_items.append(store.features_item(
+                            rec.content_hash, feats))
+                else:
+                    rec.coeffs = coeffs[k]
+            if write_items:
+                store.submit_many(write_items)
 
     # Batches are launched asynchronously and read back with a bounded
     # window: the host decodes the next batches while the device hashes
@@ -325,10 +319,9 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
         items = buckets.pop(shape, [])
         if not items:
             return
-        t0 = _time.perf_counter()
-        lumas = np.stack([l for _, l, _ in items])
-        launch(items, pdq_torch.pdq_hash_batch(lumas))
-        stats.add_stage("device_dispatch", _time.perf_counter() - t0)
+        with trace.span("scan.device_dispatch", files=len(items)):
+            lumas = np.stack([l for _, l, _ in items])
+            launch(items, pdq_torch.pdq_hash_batch(lumas))
         drain(MAX_IN_FLIGHT)
 
     def consume(result):
@@ -377,44 +370,43 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
         # ~1 GB plus the stacked copy)
         if not dihedral_pending:
             return
-        t0 = _time.perf_counter()
-        packed = pdq_ref.dihedral_hashes_batch(
-            np.stack([c for _, c in dihedral_pending]))
-        for k, (rec, _) in enumerate(dihedral_pending):
-            rec.dihedral = packed[k]
-        if device_sink is not None:
-            b = len(device_sink)
+        with trace.span("scan.dihedral_regen",
+                        files=len(dihedral_pending)):
+            packed = pdq_ref.dihedral_hashes_batch(
+                np.stack([c for _, c in dihedral_pending]))
             for k, (rec, _) in enumerate(dihedral_pending):
-                rec.device_slot = (b, k)
-            device_sink.append(([rec for rec, _ in dihedral_pending],
-                                torch.from_numpy(packed).to(device.get())))
-        dihedral_pending.clear()
-        stats.add_stage("dihedral_regen", _time.perf_counter() - t0)
+                rec.dihedral = packed[k]
+            if device_sink is not None:
+                b = len(device_sink)
+                for k, (rec, _) in enumerate(dihedral_pending):
+                    rec.device_slot = (b, k)
+                device_sink.append(([rec for rec, _ in dihedral_pending],
+                                    torch.from_numpy(packed).to(
+                                        device.get())))
+            dihedral_pending.clear()
 
-    t_loop = _time.perf_counter()
-    regen_before = stats.stage_s.get("dihedral_regen", 0.0)
-    for p, probe in zip(files, _probe_batch(files, cfg, store, identities,
-                                            meta_refresh)):
-        if probe is None:
-            consume(None)
-        elif probe.get("cached"):
-            coeffs = probe.pop("coeffs_cached", None)
-            if coeffs is not None:
-                dihedral_pending.append((probe["record"], coeffs))
-                if len(dihedral_pending) >= _DIHEDRAL_CHUNK:
-                    flush_dihedral()
-            consume(probe)
-        else:
-            misses.append((p, probe))
-        if len(meta_refresh) >= 65536 and store:
+    # the probe's own time is its span's less the dihedral chunks and
+    # device batches inside it
+    with trace.span("scan.probe", files=len(files)):
+        for p, probe in zip(files, _probe_batch(files, cfg, store,
+                                                identities, meta_refresh)):
+            if probe is None:
+                consume(None)
+            elif probe.get("cached"):
+                coeffs = probe.pop("coeffs_cached", None)
+                if coeffs is not None:
+                    dihedral_pending.append((probe["record"], coeffs))
+                    if len(dihedral_pending) >= _DIHEDRAL_CHUNK:
+                        flush_dihedral()
+                consume(probe)
+            else:
+                misses.append((p, probe))
+            if len(meta_refresh) >= 65536 and store:
+                store.put_meta_many(meta_refresh)
+                meta_refresh.clear()
+        if meta_refresh and store:
             store.put_meta_many(meta_refresh)
             meta_refresh.clear()
-    if meta_refresh and store:
-        store.put_meta_many(meta_refresh)
-        meta_refresh.clear()
-    stats.add_stage(
-        "probe", (_time.perf_counter() - t_loop)
-        - (stats.stage_s.get("dihedral_regen", 0.0) - regen_before))
 
     flush_dihedral()
 
@@ -425,7 +417,7 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
             store.submit_many(write_buf)
             write_buf.clear()
 
-    if misses:
+    def decode_misses():
         from . import heavy as heavymod
 
         # where a preview-less raw is demosaiced: this process's device
@@ -449,13 +441,11 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
             # the heavy half inline — device batches still overlap via
             # the async dispatch window below
             for p, probe in misses:
-                t0 = _time.perf_counter()
                 try:
                     heavy = heavymod.heavy_prepare(str(p), content_key,
                                                    want_px, here)
                 except Exception:
                     heavy = None
-                stats.add_stage("heavy", _time.perf_counter() - t0)
                 handle(probe, heavy)
         else:
             from concurrent.futures import as_completed
@@ -474,17 +464,18 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
                         for p, probe in misses}
                 for fut in as_completed(futs):
                     probe = futs[fut]
-                    t0 = _time.perf_counter()
                     try:
                         heavy = fut.result()
                     except Exception:
                         heavy = None
-                    # pool path: result waits, i.e. time the parent is
-                    # starved for decode output (workers overlap)
-                    stats.add_stage("heavy", _time.perf_counter() - t0)
                     handle(probe, heavy)
             finally:
                 pool.shutdown()
+    if misses:
+        # the decode of the cache misses: its own time is the span's less
+        # the device batches inside it
+        with trace.span("scan.heavy", files=len(misses)):
+            decode_misses()
     flush_writes()
 
     # leftovers: full buckets already flushed inline; combine underfull
@@ -496,13 +487,14 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
         chunk = leftover[i:i + cfg.batch_size]
         if not chunk:
             continue
-        t0 = _time.perf_counter()
-        if len({it[1].shape for it in chunk}) == 1:
-            out = pdq_torch.pdq_hash_batch(np.stack([l for _, l, _ in chunk]))
-        else:
-            out = pdq_torch.pdq_hash_batch_mixed([l for _, l, _ in chunk])
-        launch(chunk, out)
-        stats.add_stage("device_dispatch", _time.perf_counter() - t0)
+        with trace.span("scan.device_dispatch", files=len(chunk)):
+            if len({it[1].shape for it in chunk}) == 1:
+                out = pdq_torch.pdq_hash_batch(
+                    np.stack([l for _, l, _ in chunk]))
+            else:
+                out = pdq_torch.pdq_hash_batch_mixed(
+                    [l for _, l, _ in chunk])
+            launch(chunk, out)
         drain(MAX_IN_FLIGHT)
     drain(0)
 
@@ -529,12 +521,11 @@ def scan(paths, cfg: ScanConfig | None = None, store=None,
                     np.stack([r.dihedral for r in with_d])).to(
                         device.get())))
 
-    t0 = _time.perf_counter()
-    if store and not store.flush():
-        trace.tag("CACHE-WRITE-FAILED",
-                  f"cache writes not durable ({store.dropped_updates} "
-                  "dropped); next scan will re-hash affected files")
-    stats.add_stage("cache_flush", _time.perf_counter() - t0)
+    with trace.span("scan.cache_flush"):
+        if store and not store.flush():
+            trace.tag("CACHE-WRITE-FAILED",
+                      f"cache writes not durable ({store.dropped_updates} "
+                      "dropped); next scan will re-hash affected files")
     return records, stats
 
 

@@ -33,6 +33,8 @@ import json
 import os
 import sys
 import threading
+import time
+import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from urllib.parse import parse_qs, urlparse
@@ -45,7 +47,7 @@ from .ops import hamming, pdq_torch
 from .parallel import sharded
 from .pipeline import decode
 from .pipeline.decode import prepare_luma_fast
-from .utils import netguard
+from .utils import netguard, trace
 
 PDQ_MIN_QUALITY = 50
 
@@ -388,11 +390,15 @@ class HashIndex:
         """(Q, V, nbytes) query dihedral variants -> per-query matches
         [(index, path, distance), ...] sorted by distance, ties by index.
         With a mesh (parallel/sharded.make_mesh) the corpus is sharded
-        over its devices (query_mesh).
+        over its devices (query_mesh).  A span index.query.
 
         similarity is clamped to [0, nbits-1]: the sentinels nbits+1
         (device padding rows) and the low-quality gate must never be
         selectable by a client-supplied radius."""
+        with trace.span("index.query", queries=len(variants)):
+            return self._query(variants, similarity, max_results, mesh)
+
+    def _query(self, variants, similarity, max_results, mesh):
         similarity = max(0, min(int(similarity), self.nbytes * 8 - 1))
         if mesh is not None:
             return self.query_mesh(mesh, variants, similarity, max_results)
@@ -465,9 +471,11 @@ class NearDupService:
                 float(out["quality"][0]) * 100.0)
 
     def hash_bytes(self, data: bytes):
-        """Image bytes -> (variants (8, 32) u8, quality) or None."""
-        img = decode.sniff_decode_bytes(data, device=self.device)
-        return None if img is None else self._hash_image(img)
+        """Image bytes -> (variants (8, 32) u8, quality) or None; a span
+        request.hash."""
+        with trace.span("request.hash", bytes=len(data)):
+            img = decode.sniff_decode_bytes(data, device=self.device)
+            return None if img is None else self._hash_image(img)
 
     def query_bytes(self, data: bytes, similarity: int | None = None,
                     max_results: int = 100):
@@ -504,16 +512,35 @@ class NearDupService:
             def log_message(self, *a):
                 pass
 
-            def _send(self, code, body: bytes, ctype: str):
-                self.send_response(code)
-                self.send_header("Content-Type", ctype)
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
+            def _traced(self, route):
+                """One request under a root span http.request, whose id
+                is the request's: counts the body's bytes, the
+                response's status and wait_us, from the connection's
+                accept to here; a child http.respond holds the JSON
+                encoding and the write."""
+                start = time.time_ns()
+                with trace.span("http.request") as self._req:
+                    accepted = getattr(self.server, "accepted_ns", {}).pop(
+                        self.connection, None)
+                    if accepted is not None:
+                        self._req.count("wait_us",
+                                        (start - accepted) // 1000)
+                    route()
+
+            def _send(self, code, body, ctype: str):
+                """body: bytes, or an object sent as JSON."""
+                self._req.count("status", code)
+                with trace.span("http.respond"):
+                    if not isinstance(body, bytes):
+                        body = json.dumps(body).encode()
+                    self.send_response(code)
+                    self.send_header("Content-Type", ctype)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
 
             def _json(self, obj, code=200):
-                self._send(code, json.dumps(obj).encode(),
-                           "application/json")
+                self._send(code, obj, "application/json")
 
             def _gate(self, mutating: bool) -> bool:
                 """Reject DNS-rebound Hosts everywhere, and Origin-
@@ -531,6 +558,12 @@ class NearDupService:
                 return True
 
             def do_GET(self):
+                self._traced(self._get)
+
+            def do_POST(self):
+                self._traced(self._post)
+
+            def _get(self):
                 u = urlparse(self.path)
                 if not self._gate(mutating=False):
                     return
@@ -543,7 +576,7 @@ class NearDupService:
                 else:
                     self._json({"error": "not found"}, 404)
 
-            def do_POST(self):
+            def _post(self):
                 u = urlparse(self.path)
                 q = parse_qs(u.query)
                 if not self._gate(
@@ -558,6 +591,7 @@ class NearDupService:
                         self._json({"error": "bad length"}, 400)
                         return
                     data = self.rfile.read(n)
+                    self._req.count("bytes", len(data))
                     try:
                         sim = int(q.get("similarity",
                                         [service.similarity])[0])
@@ -597,8 +631,21 @@ class NearDupService:
         return Handler
 
     def serve(self, host: str = "127.0.0.1", port: int = 0):
-        httpd = ThreadingHTTPServer((host, port), self.make_handler())
+        httpd = _Server((host, port), self.make_handler())
         return httpd, httpd.server_address[1]
+
+
+class _Server(ThreadingHTTPServer):
+    """The HTTP server of --serve: stamps each connection's accept time
+    (time.time_ns()) for the handler's wait_us."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.accepted_ns = weakref.WeakKeyDictionary()
+
+    def process_request(self, request, client_address):
+        self.accepted_ns[request] = time.time_ns()
+        super().process_request(request, client_address)
 
 
 _INDEX_PAGE = (
@@ -617,8 +664,6 @@ def run_serve(args) -> int:
     load --index-file) and answer queries until interrupted; the index
     is saved to --index-file on the way out, /v1/add mutations
     included."""
-    from .utils import trace
-
     from .pipeline import scan as scanmod
 
     index_file = getattr(args, "index_file", None)
