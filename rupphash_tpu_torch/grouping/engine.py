@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import random
 import re
+from operator import attrgetter
 from pathlib import Path
 
 import numpy as np
@@ -117,19 +118,28 @@ class UnionFind:
         return _components_from_roots(roots, min_size)
 
 
+def _component_runs(roots: np.ndarray, min_size: int = 2):
+    """(members, offsets): the runs of equal roots with at least min_size
+    members as a CSR (run k is members[offsets[k]:offsets[k + 1]]), runs
+    in ascending root order, each run's members in ascending index order
+    (the stable argsort of the roots)."""
+    n = len(roots)
+    if n == 0:
+        return np.empty(0, np.int64), np.zeros(1, np.int64)
+    order = np.argsort(roots, kind="stable")
+    bounds = np.concatenate(
+        ([0], np.flatnonzero(np.diff(roots[order])) + 1, [n]))
+    sizes = np.diff(bounds)
+    keep = sizes >= min_size
+    members = order[np.repeat(keep, sizes)]
+    return members, np.concatenate(([0], np.cumsum(sizes[keep])))
+
+
 def _components_from_roots(roots: np.ndarray,
                            min_size: int = 2) -> list[list[int]]:
-    order = np.argsort(roots, kind="stable")
-    sr = roots[order]
-    groups = []
-    start = 0
-    n = len(roots)
-    for k in range(1, n + 1):
-        if k == n or sr[k] != sr[start]:
-            if k - start >= min_size:
-                groups.append(order[start:k].tolist())
-            start = k
-    return groups
+    members, offsets = _component_runs(np.asarray(roots), min_size)
+    return [members[a:b].tolist()
+            for a, b in zip(offsets[:-1].tolist(), offsets[1:].tolist())]
 
 
 # --------------------------------------------------------------------------
@@ -147,47 +157,55 @@ def natural_key(s: str):
                  for t in _NAT_SPLIT.split(s) if t != "")
 
 
+def _exif_key(desc: bool):
+    def key(name, f):
+        has = f.exif_timestamp is not None
+        ts = f.exif_timestamp if has else f.modified
+        return (0 if has else 1, -ts if desc else ts)
+    return key
+
+
+def _by_name(name, f):
+    return name
+
+
+def _by_natural_name(name, f):
+    return natural_key(name)
+
+
+# sort_files' orders (scanner.rs:2040-2110): the key of a record, given
+# its file name, and how the order turns: "" ascending, "desc" a stable
+# descending sort, "reverse" an ascending sort reversed whole (equal keys
+# end in reverse order).  "random" and "location" are not keyed.
+_ORDERS = {
+    "name": (_by_name, ""),
+    "name-desc": (_by_name, "reverse"),
+    "name-natural": (_by_natural_name, ""),
+    "name-natural-desc": (_by_natural_name, "reverse"),
+    "date": (lambda name, f: f.modified, ""),
+    "date-desc": (lambda name, f: f.modified, "desc"),
+    "size": (lambda name, f: f.size, ""),
+    "size-desc": (lambda name, f: f.size, "desc"),
+    "exif-date": (_exif_key(False), ""),
+    "exif-date-desc": (_exif_key(True), ""),
+}
+
+
 def sort_files(files: list[FileRecord], sort_order: str):
     """In-place sort mirroring sort_files (scanner.rs:2040-2110)."""
     order = sort_order.lower()
-    name = lambda f: f.path.name
-    if order == "name":
-        files.sort(key=name)
-    elif order == "name-desc":
-        files.sort(key=name)
-        files.reverse()
-    elif order == "name-natural":
-        files.sort(key=lambda f: natural_key(f.path.name))
-    elif order == "name-natural-desc":
-        files.sort(key=lambda f: natural_key(f.path.name))
-        files.reverse()
-    elif order == "date":
-        files.sort(key=lambda f: f.modified)
-    elif order == "date-desc":
-        files.sort(key=lambda f: f.modified, reverse=True)
-    elif order == "size":
-        files.sort(key=lambda f: f.size)
-    elif order == "size-desc":
-        files.sort(key=lambda f: f.size, reverse=True)
-    elif order in ("exif-date", "exif-date-desc"):
-        desc = order.endswith("desc")
-
-        def key(f):
-            has = f.exif_timestamp is not None
-            ts = f.exif_timestamp if has else f.modified
-            primary = -ts if desc else ts
-            return (0 if has else 1, primary)
-        files.sort(key=key)
-    elif order == "random":
+    if order == "random":
         random.shuffle(files)
-    elif order == "location":
+    elif order != "location":
         # the location order is GLOBAL (the GPS map's optimized path
         # over every marker, gui/app.rs:242-271) and cannot be derived
         # from one group's files; callers apply apply_location_sort
         # over the full group list after assembly
-        pass
-    else:
-        files.sort(key=lambda f: natural_key(f.path.name))
+        key, turn = _ORDERS.get(order, _ORDERS["name-natural"])
+        files.sort(key=lambda f: key(f.path.name, f),
+                   reverse=turn == "desc")
+        if turn == "reverse":
+            files.reverse()
 
 
 def apply_location_sort(groups: list[list[FileRecord]]):
@@ -215,15 +233,96 @@ def apply_location_sort(groups: list[list[FileRecord]]):
         g.sort(key=lambda f: rank.get(f.path, big))
 
 
-def _sort_by_stem_then_ext(files: list[FileRecord]):
-    """scanner.rs:2256-2263: group stem-mates, RAW after processed."""
-    files.sort(key=lambda f: (f.path.stem,
-                              f.path.suffix.lower().lstrip(".") in RAW_EXTS))
+def _path_columns(paths: list[str]):
+    """(names, stems, extensions, RAW flags, (parent dir, stem) ids) of
+    the paths, as pathlib has them (Python 3.12, POSIX): p.name, p.stem,
+    p.suffix without its dot, and an id a (str(p.parent), p.stem) pair.
+    Each column is one pass over the str() of the paths, which pathlib
+    normalises: no empty or "." parts, no trailing slash, a root of "/"
+    or "//", "." for the empty path (whose name is "")."""
+    cut = [s.rfind("/") for s in paths]
+    names = [s[i + 1:] if s != "." else "" for s, i in zip(paths, cut)]
+    dots = [n.rfind(".") for n in names]
+    # a suffix needs something before its dot and after it
+    stems = [n[:d] if 0 < d < len(n) - 1 else n
+             for n, d in zip(names, dots)]
+    exts = [n[d + 1:] if 0 < d < len(n) - 1 else ""
+            for n, d in zip(names, dots)]
+    raw_of = {e: e.lower() in RAW_EXTS for e in dict.fromkeys(exts)}
+    raw = np.fromiter(map(raw_of.__getitem__, exts), bool, len(exts))
+    # the path up to the end of its stem: the root or parent with its
+    # separator, which gives the parent back, then the stem, which has
+    # no "/": equal exactly where (str(p.parent), p.stem) is equal
+    keys = [s[:i + 1 + len(st)] for s, i, st in zip(paths, cut, stems)]
+    return names, stems, exts, raw, _ids(keys)
 
 
-# --------------------------------------------------------------------------
-# Group construction
-# --------------------------------------------------------------------------
+def _ids(values: list) -> np.ndarray:
+    """Each value's id, in order of first appearance."""
+    at = dict.fromkeys(values)
+    at = dict(zip(at, range(len(at))))
+    return np.fromiter(map(at.__getitem__, values), np.int64, len(values))
+
+
+class _Members:
+    """The grouped rows' columns, one entry a member in group order: the
+    records and, from one str(path) a member, their names, stems,
+    extensions, RAW flags and (parent dir, stem) ids."""
+
+    __slots__ = ("recs", "names", "stems", "exts", "raw", "dir_stem")
+
+    def __init__(self, recs: list[FileRecord], cols=None):
+        self.recs = recs
+        if cols is None:
+            cols = _path_columns(list(map(str, map(_PATH, recs))))
+        self.names, self.stems, self.exts, self.raw, self.dir_stem = cols
+
+    def take(self, sel: np.ndarray) -> "_Members":
+        idx = sel.tolist()
+        return _Members([self.recs[k] for k in idx],
+                        ([self.names[k] for k in idx],
+                         [self.stems[k] for k in idx],
+                         [self.exts[k] for k in idx],
+                         self.raw[sel], self.dir_stem[sel]))
+
+
+def _union_roots(n: int, ei: np.ndarray, ej: np.ndarray) -> np.ndarray:
+    """Union-find roots of n nodes under the edges: the native
+    path-halving union-find where the library is present."""
+    from .. import native
+    roots = native.union_find_roots(n, ei, ej)
+    if roots is None:
+        uf = UnionFind(n)
+        uf.union_edges(ei, ej)
+        roots = np.fromiter((uf.find(i) for i in range(n)),
+                            dtype=np.int64, count=n)
+    return roots
+
+
+def _merge_runs(order_key: np.ndarray, offsets: np.ndarray,
+                keys: np.ndarray):
+    """Merge the CSR's groups that share a key (scanner.rs:1905-1983):
+    (sel, offsets) of the merged groups, sel the members' old positions.
+    A merged group stands where its first group stood, its members in
+    ascending order_key; None when no two groups share a key."""
+    n_groups = len(offsets) - 1
+    gid = np.repeat(np.arange(n_groups), np.diff(offsets))
+    # each key's first member (np.unique keeps first occurrences) lies in
+    # the first group that holds the key: link every holder to it
+    _, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+    owner = gid[first][inv]
+    link = owner != gid
+    if not link.any():
+        return None
+    roots = _union_roots(n_groups, owner[link], gid[link])
+    _, lead, comp = np.unique(roots, return_index=True, return_inverse=True)
+    rank = np.empty_like(lead)
+    rank[np.argsort(lead)] = np.arange(len(lead))
+    merged = rank[comp][gid]
+    sel = np.lexsort((order_key, merged))
+    return sel, np.concatenate(
+        ([0], np.cumsum(np.bincount(merged, minlength=len(lead)))))
+
 
 def merge_groups_by_stem(groups: list[list[int]],
                          files: list[FileRecord]) -> list[list[int]]:
@@ -231,71 +330,177 @@ def merge_groups_by_stem(groups: list[list[int]],
     (scanner.rs:1905-1983) so e.g. IMG_1.jpg + IMG_1.nef travel together."""
     if len(groups) < 2:
         return groups
-    key_to_group: dict[tuple, int] = {}
-    uf = UnionFind(len(groups))
-    for g_idx, group in enumerate(groups):
-        for f_idx in group:
-            p = files[f_idx].path
-            key = (str(p.parent), p.stem)
-            if key in key_to_group:
-                uf.union(key_to_group[key], g_idx)
-            else:
-                key_to_group[key] = g_idx
-    merged: dict[int, list[int]] = {}
-    for g_idx, group in enumerate(groups):
-        merged.setdefault(uf.find(g_idx), []).extend(group)
-    return [sorted(set(g)) for g in merged.values()]
+    members = np.fromiter((i for g in groups for i in g), np.int64)
+    offsets = np.concatenate(([0], np.cumsum([len(g) for g in groups],
+                                             dtype=np.int64)))
+    keys = _Members([files[i] for i in members.tolist()]).dir_stem
+    got = _merge_runs(members, offsets, keys)
+    if got is not None:
+        sel, offsets = got
+        members = members[sel]
+    return [sorted(set(members[a:b].tolist()))
+            for a, b in zip(offsets[:-1].tolist(), offsets[1:].tolist())]
 
 
-def _min_dihedral_distance(variants: np.ndarray, h: bytes) -> int:
-    hb = np.frombuffer(h, dtype=np.uint8)
-    x = np.bitwise_xor(variants, hb[None, :])
-    return int(np.unpackbits(x, axis=-1).sum(axis=-1).min())
+def _rank(values: list) -> np.ndarray:
+    """Dense ranks under Python's ordering: equal values share a rank."""
+    at = sorted(dict.fromkeys(values))
+    at = dict(zip(at, range(len(at))))
+    return np.fromiter(map(at.__getitem__, values), np.int64, len(values))
+
+
+_PATH = attrgetter("path")
+_CONTENT = attrgetter("content_hash")
+_HASH = attrgetter("pdqhash")
+_DIHEDRAL = attrgetter("dihedral")
+_STATUS = ("all-identical", "some-identical", "none")
+_NO_HASH = bytes(32)
+_CHUNK = 1 << 12
+_EMPTY = (hash(b""), hash(None))
+
+
+def _min_variant_distance(hashes: np.ndarray, pivots: np.ndarray,
+                          gid: np.ndarray) -> np.ndarray:
+    """(M,) the least Hamming distance from each member's hash (M, 32) to
+    the 8 variants of its group's pivot (G, 8, 32)."""
+    out = np.empty(len(hashes), np.int64)
+    h64, p64 = hashes.view(np.uint64), pivots.view(np.uint64)
+    for a in range(0, len(hashes), _CHUNK):
+        bits = np.bitwise_count(h64[a:a + _CHUNK, None, :]
+                                ^ p64[gid[a:a + _CHUNK]])
+        out[a:a + _CHUNK] = (bits[..., 0] + bits[..., 1] + bits[..., 2]
+                             + bits[..., 3]).min(axis=-1)
+    return out
+
+
+def _content_counts(contents: list, gid: np.ndarray):
+    """(counts, hashed): how often each member's content hash occurs in
+    its group, and whether it has one.  Only members whose hash() value
+    repeats in their group are compared by value."""
+    n = len(contents)
+    hv = np.fromiter(map(hash, contents), np.int64, n)
+    order = np.lexsort((hv, gid))
+    gs, vs = gid[order], hv[order]
+    same = (gs[1:] == gs[:-1]) & (vs[1:] == vs[:-1])
+    cand = order[np.concatenate(([False], same))
+                 | np.concatenate((same, [False]))]
+    ids = _ids([(g, contents[m])
+                for g, m in zip(gid[cand].tolist(), cand.tolist())])
+    counts = np.ones(n, np.int64)
+    counts[cand] = np.bincount(ids)[ids]
+    # empty content_hash means "not hashed", never "identical" — the
+    # reference always has a blake3, so its counts can't alias this way
+    hashed = np.ones(n, bool)
+    for m in np.flatnonzero((hv == _EMPTY[0])
+                            | (hv == _EMPTY[1])).tolist():
+        hashed[m] = bool(contents[m])
+    return counts, hashed
+
+
+def _analyze(t: _Members, offsets: np.ndarray, sort_order: str, sp=None):
+    """Order every group of the CSR t[offsets[g]:offsets[g + 1]] (none
+    empty) and compute its info, as analyze_group_with_features
+    (scanner.rs:2183-2254) does one group: (groups, max_dist, status),
+    each group's records in their final order, status an index into
+    _STATUS.
+
+    A group's members whose content hash occurs more than once in it
+    come first (by pixel hash, content hash, name), the rest in the
+    user's order, then a stable sort by (stem, RAW after processed): one
+    lexsort over every member.  max_dist is the largest, over the
+    group's hashed members, of the least distance from the member's
+    hash to the pivot's 8 variants, the pivot the first member in that
+    order with a dihedral set, else the first hash repeated 8 times
+    (plain Hamming): one pass over every member."""
+    recs = t.recs
+    n, n_groups = len(recs), len(offsets) - 1
+    if n == 0:
+        return [], np.empty(0, np.int64), np.empty(0, np.int64)
+    sizes = offsets[1:] - offsets[:-1]
+    lead = offsets[:-1]
+    gid = np.repeat(np.arange(n_groups), sizes)
+    pos = np.arange(n) - lead[gid]
+    contents = list(map(_CONTENT, recs))
+    cnt, has_content = _content_counts(contents, gid)
+    dupe = has_content & (cnt > 1)
+    status = np.where(has_content[lead] & (cnt[lead] == sizes), 0,
+                      np.where(np.bincount(gid[dupe], minlength=n_groups),
+                               1, 2))
+
+    # names are compared only between members of one stem, where they
+    # differ in their suffixes alone: the extension's rank orders them
+    ext_rank = _rank(t.exts)
+    key = np.zeros(n, np.int64)
+    tie = pos
+    order = sort_order.lower()
+    if order == "random":
+        # sort_files shuffles each group's unique members
+        uniq = np.flatnonzero(~dupe)
+        cut = np.searchsorted(gid[uniq], np.arange(n_groups + 1))
+        for a, b in zip(cut[:-1].tolist(), cut[1:].tolist()):
+            members = uniq[a:b].tolist()
+            random.shuffle(members)
+            key[members] = np.arange(len(members))
+    elif order != "location":
+        by, turn = _ORDERS.get(order, _ORDERS["name-natural"])
+        key = (ext_rank if by is _by_name
+               else _rank(list(map(by, t.names, recs))))
+        if turn:
+            key = -key
+        if turn == "reverse":
+            tie = np.where(dupe, pos, -pos)
+    d = np.flatnonzero(dupe)
+    if len(d):
+        key = np.where(dupe, 0, key)
+        key[d] = _rank([(recs[m].pixel_hash or b"", contents[m], e)
+                        for m, e in zip(d.tolist(), ext_rank[d].tolist())])
+    # one lexsort of two keys: (group, stem, RAW, unique) and (key, tie),
+    # each packed in an int64 (every part is below n in size)
+    perm = np.lexsort(((key + n) * (2 * n + 1) + tie + n,
+                       ((gid * n + _rank(t.stems)) * 2 + t.raw) * 2 + ~dupe))
+    members = [recs[k] for k in perm.tolist()]
+
+    # member m is the m-th in final order from here on (gid[perm] == gid)
+    hashes = list(map(_HASH, members))
+    hashed = np.ones(n, bool)
+    if None in hashes:
+        hashed = np.array([h is not None for h in hashes])
+        hashes = [_NO_HASH if h is None else h for h in hashes]
+    h = np.frombuffer(b"".join(hashes), np.uint8).reshape(n, 32)
+    dih = list(map(_DIHEDRAL, members))
+    pivots, plain = [], 0
+    bounds = offsets.tolist()
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        for m in range(a, b):
+            if dih[m] is not None:
+                pivots.append(dih[m])
+                break
+        else:
+            plain += 1
+            first = a + np.flatnonzero(hashed[a:b])[:1]
+            pivots.append(np.repeat(h[first if len(first) else [a]], 8,
+                                    axis=0))
+    dist = np.where(hashed, _min_variant_distance(
+        h, np.stack(pivots).astype(np.uint8, copy=False), gid), 0)
+    if sp is not None:
+        sp.count("rows", n)
+        sp.count("plain_pivot", plain)
+    return ([members[a:b] for a, b in zip(bounds[:-1], bounds[1:])],
+            np.maximum.reduceat(dist, lead), status)
 
 
 def analyze_group(group: list[FileRecord], sort_order: str) -> GroupInfo:
     """Order a group in place and compute its info, mirroring
     analyze_group_with_features (scanner.rs:2183-2254): bit-identical
     duplicates first (sorted by pixel/content hash then name), the rest in
-    user order, then stem-mates adjacent; max_dist is pivot-vs-dihedral."""
+    user order, then stem-mates adjacent; max_dist is pivot-vs-dihedral.
+    The one-group call of _analyze."""
     if not group:
         return GroupInfo()
-    # empty content_hash means "not hashed", never "identical" — the
-    # reference always has a blake3, so its counts can't alias this way
-    counts: dict[bytes, int] = {}
-    for f in group:
-        if f.content_hash:
-            counts[f.content_hash] = counts.get(f.content_hash, 0) + 1
-
-    dupes = [f for f in group if counts.get(f.content_hash, 0) > 1]
-    unique = [f for f in group if counts.get(f.content_hash, 0) <= 1]
-    dupes.sort(key=lambda f: (f.pixel_hash or b"", f.content_hash, f.path.name))
-    sort_files(unique, sort_order)
-    group[:] = dupes + unique
-    _sort_by_stem_then_ext(group)
-
-    pivot = next((f for f in group if f.dihedral is not None), None)
-    if pivot is not None:
-        max_d = max((_min_dihedral_distance(pivot.dihedral, f.pdqhash)
-                     for f in group if f.pdqhash is not None), default=0)
-    else:
-        ph = next((f.pdqhash for f in group if f.pdqhash is not None), None)
-        if ph is not None:
-            max_d = max((_hamming_bytes(ph, f.pdqhash)
-                         for f in group if f.pdqhash is not None), default=0)
-        else:
-            max_d = 0
-
-    has_dupes = any(c > 1 for c in counts.values())
-    all_identical = (len(counts) == 1
-                     and next(iter(counts.values())) == len(group))
-    status = ("all-identical" if all_identical
-              else "some-identical" if has_dupes else "none")
-    return GroupInfo(max_dist=int(max_d), status=status)
-
-
-def _hamming_bytes(a: bytes, b: bytes) -> int:
-    return bin(int.from_bytes(a, "big") ^ int.from_bytes(b, "big")).count("1")
+    (members,), max_dist, status = _analyze(
+        _Members(group), np.array([0, len(group)]), sort_order)
+    group[:] = members
+    return GroupInfo(max_dist=int(max_dist[0]), status=_STATUS[status[0]])
 
 
 def group_files(files: list[FileRecord],
@@ -442,45 +647,28 @@ def finalize_edges(files, gi: np.ndarray, gj: np.ndarray,
     union-find / stem-merge / analyze / ordering tail
     (scanner.rs:1780-1830 + :1561-1576), shared by the single-chip and
     mesh-sharded edge searches so the production semantics exist once."""
-    n_all = len(files)
     with trace.span("cluster") as sp:
         with trace.span("cluster.components"):
-            # always prefer the native path-halving union-find when the
-            # library is present — the old >10k-edge threshold left
-            # mid-size edge sets on the slower Python loop for no benefit
-            if len(gi) > 0:
-                from .. import native
-                roots = native.union_find_roots(n_all, gi, gj)
-            else:
-                roots = None
-            if roots is not None:
-                raw = _components_from_roots(roots)
-            else:
-                uf = UnionFind(n_all)
-                uf.union_edges(gi, gj)
-                raw = uf.components(min_size=2)
+            members, offsets = _component_runs(
+                _union_roots(len(files), gi, gj))
         with trace.span("cluster.stem_merge") as sm:
-            merged = merge_groups_by_stem(raw, files)
-            sm.count("merged", len(raw) - len(merged))
+            t = _Members([files[i] for i in members.tolist()])
+            got = _merge_runs(members, offsets, t.dir_stem)
+            sm.count("merged", 0 if got is None else len(offsets)
+                     - len(got[1]))
+            if got is not None:
+                t, offsets = t.take(got[0]), got[1]
 
-        with trace.span("cluster.analyze"):
-            groups: list[list[FileRecord]] = []
-            infos: list[GroupInfo] = []
-            for g in merged:
-                members = [files[i] for i in g]
-                infos.append(analyze_group(members, sort_order))
-                groups.append(members)
-
+        with trace.span("cluster.analyze") as sa:
+            groups, max_dist, status = _analyze(t, offsets, sort_order, sa)
             if sort_order.lower() == "location":
                 apply_location_sort(groups)
-
-            order = sorted(range(len(groups)),
-                           key=lambda k: (0 if infos[k].status
-                                          == "all-identical" else 1,
-                                          infos[k].max_dist,
-                                          -len(groups[k])))
-            groups = [groups[k] for k in order]
-            infos = [infos[k] for k in order]
+            # identical first, then max distance, then descending size;
+            # lexsort is stable, so ties keep the merged order
+            order = np.lexsort((-np.diff(offsets), max_dist, status != 0))
+            groups = [groups[k] for k in order.tolist()]
+            infos = [GroupInfo(max_dist=d, status=_STATUS[s]) for d, s
+                     in zip(max_dist[order].tolist(), status[order].tolist())]
         sp.count("groups", len(groups))
-        sp.count("members", sum(map(len, groups)))
+        sp.count("members", len(t.recs))
         return groups, infos, int(len(gi))
