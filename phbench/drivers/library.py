@@ -163,6 +163,46 @@ def check(st: State, dev) -> tuple[harness.Checks, dict]:
     return checks, counters
 
 
+def tiny(config: dict, traffic: dict) -> tuple[dict, dict]:
+    """The cell at the tests' size on the CPU: 3,000 files, each pattern
+    with a hundredth of its clusters and at least 4."""
+    return (dict(config, files=3000),
+            dict(traffic, patterns=[
+                dict(p, clusters=max(4, p["clusters"] // 100))
+                for p in traffic["patterns"]]))
+
+
+def _drop_last_edge(monkeypatch):
+    """The edge search loses its last edge."""
+    from rupphash_tpu_torch.ops import hamming
+
+    orig = hamming.find_edges_fast_resident
+
+    def broken(*a, **k):
+        ei, ej = orig(*a, **k)
+        return ei[:-1], ej[:-1]
+
+    monkeypatch.setattr(hamming, "find_edges_fast_resident", broken)
+
+
+def _half_the_rows(monkeypatch):
+    """The edge search sees the first half of the rows alone."""
+    from rupphash_tpu_torch.ops import hamming
+
+    orig = hamming.find_edges_fast_resident
+
+    def broken(var_dev, low_conf=None, *a, **k):
+        half = var_dev.shape[0] // 2
+        return orig(var_dev[:half], np.asarray(low_conf)[:half], *a, **k)
+
+    monkeypatch.setattr(hamming, "find_edges_fast_resident", broken)
+
+
+# the tests' faults under the timed path, each of which `check` must see
+FAULTS = {"drop_last_edge": _drop_last_edge,
+          "half_the_rows": _half_the_rows}
+
+
 def control(cell, seed: int, dev, fault: str | None = None
             ) -> tuple[harness.Checks, dict]:
     """The check of a run in which the plain reference stands in the

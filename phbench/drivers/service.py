@@ -318,6 +318,46 @@ def control(cell, seed: int, dev, fault: str | None = None
         st.pool.join()
 
 
+def tiny(config: dict, traffic: dict) -> tuple[dict, dict]:
+    """The cell at the tests' size on the CPU: 20,000 rows, 16 sources,
+    each body kind a 32nd of its count and at least 2, 5 requests a
+    second."""
+    kinds = {k: dict(v, count=max(2, v["count"] // 32))
+             for k, v in traffic["pool"]["kinds"].items()}
+    return (dict(config, rows=20000, sources=16),
+            dict(traffic, pool={"kinds": kinds}, rate=5))
+
+
+def _distance_off_by_one(monkeypatch):
+    """Every distance of the corpus query one too large."""
+    from rupphash_tpu_torch import serve
+
+    orig = serve._query_topk
+
+    def broken(*a, **k):
+        d, i = orig(*a, **k)
+        return d + 1, i
+
+    monkeypatch.setattr(serve, "_query_topk", broken)
+
+
+def _half_the_index(monkeypatch):
+    """The corpus query searches the first half of the index alone."""
+    from rupphash_tpu_torch import serve
+
+    orig = serve._query_topk
+
+    def broken(q, base, status, n_total, nbits, k):
+        return orig(q, base, status, n_total // 2, nbits, k)
+
+    monkeypatch.setattr(serve, "_query_topk", broken)
+
+
+# the tests' faults under the timed path, each of which `check` must see
+FAULTS = {"distance_off_by_one": _distance_off_by_one,
+          "half_the_index": _half_the_index}
+
+
 def _control_answer(hashed, matches) -> tuple[int, str]:
     """(status, answer text) as /v1/query would give them."""
     if hashed is None:

@@ -4,8 +4,13 @@ check, the import guard, the checks' report and the result line.
 A cell of BENCHMARK.json names a configuration and a traffic mix.  The
 configuration's file is the one BENCHMARK.json gives; the traffic mix is
 traffic/<traffic>.json, which names its driver (drivers/<driver>.py);
-each per-layer metric is metrics/<name>.py.  A new cell, mix or metric
-is therefore new files and new entries, never an edit.
+each per-layer metric is metrics/<name>.py, all in the benchmark's
+folder under the checkout's root.  A new cell, mix, driver or metric is
+therefore new files and new entries, never an edit.
+
+A driver is a module with the hooks run.py and the tests call (DRIVER_HOOKS),
+and FAULTS: {name: callable(monkeypatch)} that each break the program
+under the driver's timed path, for the tests to see `correct` go false.
 """
 
 from __future__ import annotations
@@ -18,6 +23,13 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+BENCH = HERE.relative_to(ROOT)      # the benchmark's folder in a checkout
+
+# what every driver defines: set-up, the window, its end-to-end metrics,
+# its counts, the release of the program's state, the check and the
+# control, the tests' tiny size and the end of the run
+DRIVER_HOOKS = ("setup", "window", "end_to_end", "attempted", "release",
+                "close", "check", "control", "tiny")
 
 # top-level module names that may not be loaded in a run's process: the
 # JAX package and JAX itself (compared whole: rupphash_tpu_torch passes)
@@ -41,7 +53,7 @@ def with_pending(root: Path = ROOT) -> dict:
     were measured and left out of BENCHMARK.json (PERF.md says why), whose
     files stay tested so that a later PR adds them with entries alone."""
     man = manifest(root)
-    for path in sorted((HERE / "pending").glob("*.json")):
+    for path in sorted((root / BENCH / "pending").glob("*.json")):
         for key, entries in json.loads(path.read_text()).items():
             man[key] = man[key] + entries
     return man
@@ -58,7 +70,8 @@ def load_module(path: Path, name: str):
 
 
 class Cell:
-    """One workload of the manifest with everything found by its names."""
+    """One workload of the manifest with everything found by its names
+    in the benchmark's folder under `root`."""
 
     def __init__(self, name: str, man: dict | None = None,
                  root: Path = ROOT):
@@ -71,9 +84,11 @@ class Cell:
         self.chips = int(self.spec["chips"])
         cfg = {c["name"]: c for c in man["configs"]}[self.spec["config"]]
         self.config = json.loads((root / cfg["file"]).read_text())
+        bench = root / BENCH
         self.traffic = json.loads(
-            (HERE / "traffic" / f"{self.spec['traffic']}.json").read_text())
-        self.driver_path = HERE / "drivers" / f"{self.traffic['driver']}.py"
+            (bench / "traffic" / f"{self.spec['traffic']}.json").read_text())
+        self.driver_path = bench / "drivers" / f"{self.traffic['driver']}.py"
+        self.metrics_dir = bench / "metrics"
         self.end_to_end = [m for m in man["end_to_end"]
                            if name in m.get("workloads", [name])]
         self.per_layer = [m for m in man["per_layer"]
@@ -85,7 +100,7 @@ class Cell:
 
     def readers(self) -> dict:
         """{metric name: reader module} for the cell's per-layer metrics."""
-        return {m["name"]: load_module(HERE / "metrics" / f"{m['name']}.py",
+        return {m["name"]: load_module(self.metrics_dir / f"{m['name']}.py",
                                        "phbench_metric_" + m["name"]
                                        .replace(".", "_"))
                 for m in self.per_layer}

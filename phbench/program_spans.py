@@ -8,7 +8,9 @@ cells in one process.  A program without the span registry gives no
 records, and every reader then returns None.
 
 A grouping is a root span named "group" (engine.group_files) with the
-records that share its id as their root.
+records that share its id as their root.  Readers of other paths name
+their own root span (a request, a scan stage): each function takes it as
+`root`, "group" unless given.
 """
 
 import statistics
@@ -30,24 +32,25 @@ def clear() -> None:
         reg.clear()
 
 
-def groupings() -> list[list]:
-    """One list of records a grouping, its root first."""
+def groupings(root: str = ROOT) -> list[list]:
+    """One list of records a root span named `root` (a grouping unless
+    given), the root first."""
     reg = _registry()
     if reg is None:
         return []
     records = reg.spans()
     by_root = {s.id: [s] for s in records
-               if s.name == ROOT and s.parent is None}
+               if s.name == root and s.parent is None}
     for s in records:
         if s.root in by_root and s.id != s.root:
             by_root[s.root].append(s)
     return list(by_root.values())
 
 
-def median_ms(name: str):
-    """Median over the groupings of the summed duration (ms) of the spans
-    `name` in each, or None where no grouping holds one."""
-    groups = groupings()
+def median_ms(name: str, root: str = ROOT):
+    """Median over the roots `root` of the summed duration (ms) of the
+    spans `name` in each, or None where no root holds one."""
+    groups = groupings(root)
     if not any(s.name == name for g in groups for s in g):
         return None
     return statistics.median(
@@ -68,9 +71,9 @@ def self_ns(root, records) -> int:
     return root.end_ns - root.start_ns - covered
 
 
-def self_ms():
-    """Median over the groupings of the root span's self time (ms)."""
-    groups = groupings()
+def self_ms(root: str = ROOT):
+    """Median over the roots `root` of their self time (ms)."""
+    groups = groupings(root)
     if not groups:
         return None
     return statistics.median(self_ns(g[0], g) for g in groups) / 1e6

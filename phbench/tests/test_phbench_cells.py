@@ -1,10 +1,12 @@
 """Every cell driven end to end at a tiny size, with the port pinned to
 the CPU: correct against the reference as it stands, and not correct
-with the timed path broken underneath (an answer altered where it is
-produced; half of the work left out) or with the control in the
-program's place."""
+with the timed path broken underneath (each of its driver's FAULTS) or
+with the control in the program's place.  The cells are BENCHMARK.json's,
+the pending ones' and the stand-in's (conftest.build_standin), whose
+driver the benchmark lacks."""
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,123 +17,138 @@ from phbench.tools import control
 
 SEED = 2**31 + 12345
 
-
 # the pending cells too: their drivers, references and faults stay tested
 MAN = harness.with_pending()
+STANDIN = Path(__file__).resolve().parent / "standin_cell"
+STANDIN_MAN = json.loads((STANDIN / "entries.json").read_text())
 
 
-def tiny(name):
-    c = harness.Cell(name, MAN)
-    if c.traffic["driver"] == "library":
-        c.config = dict(c.config, files=3000)
-        c.traffic = dict(c.traffic, patterns=[
-            dict(p, clusters=max(4, p["clusters"] // 100))
-            for p in c.traffic["patterns"]])
-    else:
-        c.config = dict(c.config, rows=20000, sources=16)
-        kinds = {k: dict(v, count=max(2, v["count"] // 32))
-                 for k, v in c.traffic["pool"]["kinds"].items()}
-        c.traffic = dict(c.traffic, pool={"kinds": kinds}, rate=5)
-    return c
+def _traffic_driver(folder: Path, traffic: str) -> str:
+    return json.loads((folder / "traffic" / f"{traffic}.json")
+                      .read_text())["driver"]
 
 
-def run_tiny(name, capsys, trace=0, seconds=1.5):
-    rc = run.main(["--workload", name, "--seed", str(SEED), "--seconds",
-                   str(seconds), "--trace", str(trace)], on_cpu=True,
-                  cell=tiny(name))
+def _driver_of(where, name):
+    """(driver name, module) of a cell, read where its files lie (the
+    stand-in's in its own folder of this checkout, for collection)."""
+    if where == "repo":
+        c = harness.Cell(name, MAN)
+        return c.traffic["driver"], c.driver()
+    spec = {w["name"]: w for w in STANDIN_MAN["workloads"]}[name]
+    driver = _traffic_driver(STANDIN, spec["traffic"])
+    return driver, harness.load_module(
+        STANDIN / "drivers" / f"{driver}.py",
+        f"phbench_standin_driver_{driver}")
+
+
+# (where, name): "repo" this checkout, "standin" the stand-in's
+CELLS = [("repo", w["name"]) for w in MAN["workloads"]] + [
+    ("standin", w["name"]) for w in STANDIN_MAN["workloads"]]
+DRIVERS = {c: _driver_of(*c) for c in CELLS}
+_FIRSTS = {}
+for _c, (_d, _) in DRIVERS.items():
+    _FIRSTS.setdefault(_d, _c)
+FIRST_OF_EACH_DRIVER = list(_FIRSTS.values())
+# every driver a traffic file names, where it lies
+TRAFFIC_DRIVERS = sorted({("repo", _traffic_driver(harness.HERE, p.stem))
+                          for p in (harness.HERE / "traffic").glob("*.json")}
+                         | {("standin", _traffic_driver(STANDIN, p.stem))
+                            for p in (STANDIN / "traffic").glob("*.json")})
+
+
+def _params(cells):
+    return pytest.mark.parametrize("where,name", cells,
+                                   ids=[n for _, n in cells])
+
+
+def tiny(cell):
+    """The cell at its driver's tiny size."""
+    cell.config, cell.traffic = cell.driver().tiny(cell.config, cell.traffic)
+    return cell
+
+
+def run_tiny(cell, capsys, trace=0, seconds=1.5):
+    rc = run.main(["--workload", cell.name, "--seed", str(SEED),
+                   "--seconds", str(seconds), "--trace", str(trace)],
+                  on_cpu=True, cell=cell)
     out = capsys.readouterr().out.strip().splitlines()
     assert rc == 0
     return json.loads(out[-1])
 
 
-CELLS = [w["name"] for w in MAN["workloads"]]
-LIBRARY = [c for c in CELLS
-           if harness.Cell(c, MAN).traffic["driver"] == "library"]
-SERVICE = [c for c in CELLS
-           if harness.Cell(c, MAN).traffic["driver"] == "service"]
-
-
-@pytest.mark.parametrize("name", CELLS)
-def test_cell_is_correct(name, capsys):
-    res = run_tiny(name, capsys)
+@_params(CELLS)
+def test_cell_is_correct(where, name, cell_at, capsys):
+    cell = tiny(cell_at(where, name))
+    res = run_tiny(cell, capsys)
     assert res["correct"] is True, res["checks"]
     assert res["attempted"] > 0 and res["failed"] == 0
-    want = {m["name"] for m in harness.Cell(name, MAN).end_to_end}
+    want = {m["name"] for m in cell.end_to_end}
     assert set(res["metrics"]) == want
     assert all(v["value"] > 0 for v in res["metrics"].values())
     assert list(res)[-1] == "checks"
 
 
-@pytest.mark.parametrize("name", CELLS[:1] + SERVICE[:1])
-def test_traced_run_reads_its_spans(name, capsys):
-    res = run_tiny(name, capsys, trace=1)
+@_params(FIRST_OF_EACH_DRIVER)
+def test_traced_run_reads_its_spans(where, name, cell_at, capsys):
+    cell = tiny(cell_at(where, name))
+    res = run_tiny(cell, capsys, trace=1)
     assert res["correct"] is True
-    spans = {m["name"] for m in harness.Cell(name, MAN).per_layer
+    spans = {m["name"] for m in cell.per_layer
              if m["source"] == "program_span"}
     assert spans and spans <= set(res["metrics"])
 
 
-def _drop_last_edge(orig):
-    def broken(*a, **k):
-        ei, ej = orig(*a, **k)
-        return ei[:-1], ej[:-1]
-    return broken
-
-
-def _half_the_rows(orig):
-    def broken(var_dev, low_conf=None, *a, **k):
-        half = var_dev.shape[0] // 2
-        return orig(var_dev[:half], np.asarray(low_conf)[:half], *a, **k)
-    return broken
-
-
-@pytest.mark.parametrize("fault", [_drop_last_edge, _half_the_rows])
-@pytest.mark.parametrize("name", LIBRARY)
-def test_library_fault_is_not_correct(name, fault, capsys, monkeypatch):
-    from rupphash_tpu_torch.ops import hamming
-
-    monkeypatch.setattr(hamming, "find_edges_fast_resident",
-                        fault(hamming.find_edges_fast_resident))
-    res = run_tiny(name, capsys)
+@pytest.mark.parametrize("where,name,fault", [
+    (*c, f) for c in CELLS for f in DRIVERS[c][1].FAULTS],
+    ids=[f"{c[1]}-{f}" for c in CELLS for f in DRIVERS[c][1].FAULTS])
+def test_fault_is_not_correct(where, name, fault, cell_at, capsys,
+                              monkeypatch):
+    """Each fault of the cell's driver, planted under the timed path."""
+    cell = tiny(cell_at(where, name))
+    cell.driver().FAULTS[fault](monkeypatch)
+    res = run_tiny(cell, capsys)
     assert res["correct"] is False
 
 
-def _distance_off_by_one(orig):
-    def broken(*a, **k):
-        d, i = orig(*a, **k)
-        return d + 1, i
-    return broken
-
-
-def _half_the_index(orig):
-    def broken(q, base, status, n_total, nbits, k):
-        return orig(q, base, status, n_total // 2, nbits, k)
-    return broken
-
-
-@pytest.mark.parametrize("fault", [_distance_off_by_one, _half_the_index])
-@pytest.mark.parametrize("name", SERVICE[:1])
-def test_service_fault_is_not_correct(name, fault, capsys, monkeypatch):
-    from rupphash_tpu_torch import serve
-
-    monkeypatch.setattr(serve, "_query_topk", fault(serve._query_topk))
-    res = run_tiny(name, capsys)
-    assert res["correct"] is False
-
-
-@pytest.mark.parametrize("name", LIBRARY + SERVICE[:1])
-def test_control_is_not_correct(name, capsys):
+@_params(CELLS)
+def test_control_is_not_correct(where, name, cell_at, capsys):
     """The control goes through the cell's own check and comes out not
     correct, as its printed line says."""
-    (line,) = control.report(tiny(name), [SEED], torch.device("cpu"))
+    (line,) = control.report(tiny(cell_at(where, name)), [SEED],
+                             torch.device("cpu"))
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["correct"] is False and printed == line
+
+
+@pytest.mark.parametrize("where,driver", TRAFFIC_DRIVERS,
+                         ids=[d for _, d in TRAFFIC_DRIVERS])
+def test_driver_keeps_the_contract(where, driver, request):
+    """Every driver a traffic file names defines the hooks that run.py
+    and these tests call and at least one fault, and its tiny size keeps
+    the keys of each configuration and mix it cuts, and changes neither."""
+    if where == "repo":
+        man, root = MAN, harness.ROOT
+    else:
+        man, root = request.getfixturevalue("standin")
+    drv = harness.load_module(root / harness.BENCH / "drivers"
+                              / f"{driver}.py", f"phbench_contract_{driver}")
+    for hook in harness.DRIVER_HOOKS:
+        assert callable(getattr(drv, hook, None)), hook
+    assert drv.FAULTS and all(callable(f) for f in drv.FAULTS.values())
+    for w in man["workloads"]:
+        c = harness.Cell(w["name"], man, root)
+        if c.traffic["driver"] != driver:
+            continue
+        before = json.dumps([c.config, c.traffic])
+        small = drv.tiny(c.config, c.traffic)
+        assert [set(x) for x in small] == [set(c.config), set(c.traffic)]
+        assert json.dumps([c.config, c.traffic]) == before
 
 
 def test_service_judges_answers_only_where_the_hash_agrees():
     """A hash off by a bit is hashes_off's to count, not answers_off's;
     an answer that differs under an agreeing hash is answers_off's."""
-    service = harness.Cell(SERVICE[0], MAN).driver()
+    service = next(m for d, m in DRIVERS.values() if d == "service")
     st = service.State()
     st.cfg = {"similarity": 40, "max_results": 100}
     rng = np.random.default_rng(3)

@@ -1,9 +1,12 @@
 """BENCHMARK.json against the benchmark's contract, and every file a cell
 names found by its name; the pending cells' entries (pending/*.json) are
-held to the same rules, as BENCHMARK.json will hold them."""
+held to the same rules, as BENCHMARK.json will hold them, and so is the
+stand-in checkout (conftest.build_standin), whose cell of a new driver
+is new files and entries alone."""
 
 import json
 import re
+from pathlib import Path
 
 import pytest
 
@@ -11,8 +14,9 @@ from phbench import harness
 
 MAN = harness.manifest()
 PENDING = harness.with_pending()
-BOTH = pytest.mark.parametrize("man", [MAN, PENDING],
-                               ids=["benchmark", "with_pending"])
+STANDIN_CELLS = [w["name"] for w in json.loads(
+    (Path(__file__).resolve().parent / "standin_cell" / "entries.json")
+    .read_text())["workloads"]]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 KEYS = {
@@ -25,15 +29,24 @@ KEYS = {
 }
 
 
+@pytest.fixture(params=["benchmark", "with_pending", "standin"])
+def bench(request):
+    """(manifest, root of its checkout)."""
+    if request.param == "standin":
+        return request.getfixturevalue("standin")
+    return {"benchmark": MAN, "with_pending": PENDING}[request.param], \
+        harness.ROOT
+
+
 def _line(s):
     return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s \
         and "\t" not in s
 
 
-@BOTH
-def test_keys_and_sizes(man):
+def test_keys_and_sizes(bench):
+    man, root = bench
     assert set(man) == KEYS["top"]
-    assert len((harness.ROOT / "BENCHMARK.json").read_bytes()) <= 64 << 10
+    assert len((root / "BENCHMARK.json").read_bytes()) <= 64 << 10
     assert 1 <= man["run_seconds"] <= 51
     assert man["paths"] == ["phbench"]
     assert all(_line(w) for w in man["command"])
@@ -52,8 +65,8 @@ def test_keys_and_sizes(man):
             assert m["better"] in ("lower", "higher")
 
 
-@BOTH
-def test_names_and_units(man):
+def test_names_and_units(bench):
+    man, _ = bench
     names = [x["name"] for k in ("configs", "workloads", "end_to_end",
                                  "per_layer") for x in man[k]]
     assert len(names) == len(set(names))
@@ -65,8 +78,8 @@ def test_names_and_units(man):
         assert UNIT.match(m["unit"]), m["unit"]
 
 
-@BOTH
-def test_bounds(man):
+def test_bounds(bench):
+    man, _ = bench
     for m in man["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
@@ -80,9 +93,12 @@ def test_check_fits_its_time():
     assert runs * (MAN["run_seconds"] + 60) + cells * 180 + 1200 <= 43200
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in PENDING["workloads"]])
-def test_cell_files_found_by_name(cell):
-    c = harness.Cell(cell, PENDING)
+@pytest.mark.parametrize("where,cell", [
+    ("repo", w["name"]) for w in PENDING["workloads"]] + [
+    ("standin", name) for name in STANDIN_CELLS],
+    ids=[w["name"] for w in PENDING["workloads"]] + STANDIN_CELLS)
+def test_cell_files_found_by_name(where, cell, cell_at):
+    c = cell_at(where, cell)
     assert c.driver_path.is_file()
     assert c.driver()
     readers = c.readers()
@@ -94,8 +110,8 @@ def test_cell_files_found_by_name(cell):
     assert c.per_layer
 
 
-@BOTH
-def test_metric_workloads_report_their_target(man):
+def test_metric_workloads_report_their_target(bench):
+    man, _ = bench
     e2e = {m["name"]: m for m in man["end_to_end"]}
     cells = [w["name"] for w in man["workloads"]]
     for m in man["per_layer"] + man["end_to_end"]:
@@ -107,18 +123,55 @@ def test_metric_workloads_report_their_target(man):
             assert w in target.get("workloads", cells), (m["name"], w)
 
 
-@BOTH
-def test_configs_hold_what_they_state(man):
+def test_configs_hold_what_they_state(bench):
+    """A configuration's file states its cut as its entry does: each key
+    it names is one of the file's, and the published value stands under
+    `published`, beside `deployment`."""
+    man, root = bench
     for c in man["configs"]:
-        cfg = json.loads((harness.ROOT / c["file"]).read_text())
+        cfg = json.loads((root / c["file"]).read_text())
         assert cfg["name"] == c["name"]
-        assert cfg["reduced"] == c["reduced"] == []
-        assert cfg["guarantee"] and cfg["assumed"]
+        assert cfg["reduced"] == c["reduced"]
+        assert cfg["deployment"] and cfg["guarantee"] and cfg["assumed"]
+        for key in c["reduced"]:
+            assert NAME.match(key) and key in cfg, key
+            assert key in cfg.get("published", {}), key
 
 
-@BOTH
-def test_layers_are_named_once(man):
+LAYER = re.compile(r"^[a-z0-9]+( [a-z0-9]+)*$")
+
+
+def test_layers_are_named_once(bench):
+    """Layer names are lower-case words on one line, and no two differ
+    only by case, spaces or _ - . (one layer under two spellings)."""
+    man, _ = bench
     layers = {m["layer"] for m in man["per_layer"]}
-    assert layers <= {"kernels", "edge search", "clustering",
-                      "grouping entry", "device", "service request",
-                      "corpus query"}
+    for layer in layers:
+        assert _line(layer) and LAYER.match(layer), layer
+    folded = {re.sub(r"[\s_.-]", "", layer.lower()) for layer in layers}
+    assert len(folded) == len(layers)
+
+
+def test_standin_is_new_files_and_entries_alone(standin):
+    """The stand-in checkout holds the benchmark's folder byte for byte,
+    files of its own beside it, and BENCHMARK.json with entries added
+    only: what a later PR that adds a cell of a new driver brings."""
+    man, root = standin
+    bench = root / harness.BENCH
+    for src in harness.HERE.rglob("*"):
+        if src.is_file() and "__pycache__" not in src.parts:
+            assert (bench / src.relative_to(harness.HERE)).read_bytes() \
+                == src.read_bytes(), src
+    added = {p.relative_to(bench) for p in bench.rglob("*") if p.is_file()
+             and not (harness.HERE / p.relative_to(bench)).exists()}
+    assert added and all(p.parts[0] in ("configs", "traffic", "drivers",
+                                        "metrics") for p in added)
+    ours = {w["name"] for w in MAN["workloads"]}
+    man = json.loads(json.dumps(man))      # the session's stays whole
+    for m in man["end_to_end"]:
+        if "workloads" in m:
+            m["workloads"] = [w for w in m["workloads"] if w in ours]
+    for key, entries in MAN.items():
+        got = man[key][:len(entries)] if isinstance(entries, list) \
+            else man[key]
+        assert got == entries, key

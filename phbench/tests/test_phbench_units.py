@@ -91,3 +91,45 @@ def test_idle_gaps_go_to_the_innermost_span():
     tl._ranges = {"phbench.inner": [(30, 50), (65, 90)]}
     gaps = dict(tl.idle_gaps())
     assert gaps == {"phbench.inner": 40e-9, "outside spans": 40e-9}
+    # the program's spans (record_function ranges, user annotations on
+    # the host) nest inside the benchmark's wrapper and take its gaps
+    tl = tracing.Timeline(_Profile([
+        _Event(tracing.WINDOW, 0, 100, annotation=True),
+        _Event("phbench.group_files", 0, 100, annotation=True, corr=1),
+        _Event("group", 5, 90, annotation=True, corr=2),
+        _Event("group.resident_rows", 30, 20, annotation=True, corr=3),
+        _Event("aten::copy_", 12, 2, corr=4),
+        _Event("cudaLaunchKernel", 13, 1, corr=5, linked=4),
+        _Event("kernel", 10, 10, device=True, linked=4),
+        _Event("kernel", 60, 10, device=True, linked=4),
+        _Event("group", 5, 90, device=True, annotation=True, linked=2),
+    ]))
+    assert tl.busy_s == 20e-9 and tl.window_s == 100e-9
+    assert dict(tl.idle_gaps()) == {"group.resident_rows": 20e-9,
+                                    "group": 50e-9,
+                                    "phbench.group_files": 10e-9}
+    assert tl.span_device_s("phbench.group_files") == 20e-9
+
+
+class _Event:
+    """A profiler event as tracing.Timeline reads one."""
+
+    def __init__(self, name, start, dur, *, device=False, annotation=False,
+                 corr=0, linked=0):
+        import torch
+
+        kind = torch.autograd.DeviceType
+        self._v = {"name": name, "start_ns": start, "duration_ns": dur,
+                   "device_type": kind.CUDA if device else kind.CPU,
+                   "is_user_annotation": annotation,
+                   "correlation_id": corr, "linked_correlation_id": linked,
+                   "start_thread_id": 1}
+
+    def __getattr__(self, key):
+        return lambda: self._v[key]
+
+
+class _Profile:
+    def __init__(self, events):
+        results = type("R", (), {"events": lambda _: events})()
+        self.profiler = type("P", (), {"kineto_results": results})()

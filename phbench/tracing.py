@@ -5,7 +5,9 @@ Spans are installed by name in the traced run only (each metric reader
 lists the functions it times in SPANS) and removed before the check.
 Each span is also a profiler range (record_function), so the timeline
 can say which span launched a kernel and what the host was doing while
-the device idled.
+the device idled.  The program's own spans (utils/trace) open such
+ranges too while the profiler records, and the timeline takes them
+beside the benchmark's: an idle gap goes to the innermost of either.
 """
 
 from __future__ import annotations
@@ -94,7 +96,9 @@ def _merge(intervals):
 class Timeline:
     """The profiler's events over the traced window, reduced: device busy
     time, device time by kernel name and by the span that launched it,
-    and idle gaps by the span the host was in."""
+    and idle gaps by the span the host was in.  A span is a host range
+    of the benchmark's (phbench.*) or any other user annotation
+    (record_function), as the program's spans open."""
 
     def __init__(self, prof):
         import torch
@@ -125,7 +129,8 @@ class Timeline:
                 continue         # a runtime call (cudaLaunchKernel, ...)
             else:
                 ops[e.correlation_id()] = (e.start_thread_id(), start)
-                if name.startswith("phbench."):
+                if name.startswith("phbench.") or getattr(
+                        e, "is_user_annotation", lambda: False)():
                     ranges[name].append((start, end))
                     per_thread[name][e.start_thread_id()].append((start, end))
         if self.window is None:
